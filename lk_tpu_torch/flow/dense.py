@@ -1,0 +1,640 @@
+"""Dense pyramidal Lucas–Kanade optical flow (PyTorch port).
+
+Counterpart of ``lk_tpu/flow/dense.py`` with the same names, the same
+configs (``lk_tpu.config``) and the same numerics contract: the
+window-coherent inverse-compositional formulation, one fused level
+(``lk_kernels.fused_lk_level``) per pyramid level, coarse-to-fine.
+
+Functions run where their inputs are: CPU tensors through the plain
+PyTorch level, CUDA tensors through the hand-written CUDA kernel.
+
+What the TPU layout needed and this port drops: the unified pad layouts
+(borders are read by clamped address, so levels stay unpadded) and the
+bf16 trades (``scharr_mxu``, ``fast_pyramid``, the MXU box sums): the port
+always computes the exact f32 form.  Branches not ported yet raise
+``NotImplementedError`` naming the ROADMAP.md item that will port them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+from lk_tpu.config import DenseLKConfig, LKConfig
+from lk_tpu_torch.flow.lk_kernels import (fused_lk_level, pick_tile_w,
+                                          HALO)
+from lk_tpu_torch.ops.blur import pyr_down
+from lk_tpu_torch.ops.resize import upsample2_linear
+
+_XLA_LEVEL = ("the XLA shift-select level path (no use_pallas_* flag) is "
+              "not ported: ROADMAP.md Queue 1, Slice A #3 (XLA-path level)")
+_PRECOMPUTED_A = ("fused_grads_in_kernel=False (the warp-only and precomputed-A "
+                  "levels: pallas_local_warp, make_fused_lk_level) is not "
+                  "ported: ROADMAP.md Queue 2 #8-#9")
+_PALLAS_PYR = ("pallas_pyramid=True in the per-pair dense_pyramidal_lk needs "
+               "the pyrDown kernel: ROADMAP.md Queue 1, Slice A #2 "
+               "(Queue 2 #4)")
+_PADDED_BUILD = ("padded_build is not ported: ROADMAP.md 'Left out of the "
+                 "port'")
+_BATCHED = ("dense_pyramidal_lk_batched is not ported: ROADMAP.md Queue 1, "
+            "Slice A #4")
+
+def _effective_cfg(
+    cfg: LKConfig, dense_cfg: DenseLKConfig,
+    hw: tuple[int, int] | None = None,
+) -> LKConfig:
+    """Apply DenseLKConfig.pyramid_levels to cfg.max_level, then clamp the
+    depth so the top level stays at least the window size (floor shifts,
+    exactly as ``lk_tpu``: the plan depth must agree with it)."""
+    lv = dense_cfg.pyramid_levels
+    if lv and lv - 1 != cfg.max_level:
+        cfg = dataclasses.replace(cfg, max_level=lv - 1)
+    if hw is not None:
+        h, w = hw
+        win_w, win_h = cfg.win_size
+        ml = cfg.max_level
+        while ml > 0 and ((h >> ml) < win_h or (w >> ml) < win_w):
+            ml -= 1
+        if ml != cfg.max_level:
+            cfg = dataclasses.replace(cfg, max_level=ml)
+    return cfg
+
+
+class DenseFlowResult(NamedTuple):
+    flow: torch.Tensor      # (..., H, W, 2) float32, (dx, dy)
+    min_eig: torch.Tensor   # (..., H, W) float32, min eigenvalue / area
+    valid: torch.Tensor     # (..., H, W) bool — structure tensor solvable
+
+
+def pallas_level_geometry(
+    h0: int, w0: int, dense_cfg: DenseLKConfig
+) -> tuple[bool, int, int, int, int]:
+    """(grads_resident, tile_h, tile_w, padded_h, padded_w) of a level.
+
+    The TPU tile choice, kept because the reference tiles are part of the
+    numerics (each warps with its own reference displacement)."""
+    grads_resident = (
+        dense_cfg.use_pallas_fused and dense_cfg.fused_grads_in_kernel
+        and -(-h0 // 8) * 8 <= min(dense_cfg.fused_resident_max_h, 272)
+        and w0 <= 512
+    )
+    if grads_resident:
+        th = -(-h0 // 8) * 8
+    elif dense_cfg.use_pallas_fused and dense_cfg.fused_grads_in_kernel:
+        if dense_cfg.fused_tile_h:
+            th = min(dense_cfg.fused_tile_h, -(-h0 // 8) * 8)
+        else:
+            hc = -(-h0 // 8) * 8
+            cands = [min(hc, t) for t in (272, 136, 64)]
+            best_pad = min(-(-h0 // t) * t for t in cands)
+            th = next(t for t in cands if -(-h0 // t) * t == best_pad)
+    elif dense_cfg.use_pallas_fused and h0 <= 272:
+        th = min(-(-h0 // 8) * 8, 136)
+    else:
+        th = 64
+    tw, wp = pick_tile_w(w0)
+    if (not grads_resident and dense_cfg.use_pallas_fused
+            and dense_cfg.fused_grads_in_kernel):
+        if dense_cfg.fused_tile_w:
+            tw = min(dense_cfg.fused_tile_w, -(-w0 // 128) * 128)
+            wp = -(-w0 // tw) * tw
+        elif w0 > 512:
+            for cand in (512, 384, 256):
+                if cand <= tw:
+                    break
+                wp_c = -(-w0 // cand) * cand
+                if wp_c - w0 <= (wp - w0) + 128:
+                    tw, wp = cand, wp_c
+                    break
+    hp = -(-h0 // th) * th
+    return grads_resident, th, tw, hp, wp
+
+
+def _edge_pad(x: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
+    """Edge-replicate the trailing (H, W) axes of x out to (hp, wp)."""
+    h, w = x.shape[-2:]
+    if (hp, wp) == (h, w):
+        return x
+    ri = torch.arange(hp, device=x.device).clamp(max=h - 1)
+    ci = torch.arange(wp, device=x.device).clamp(max=w - 1)
+    return x.index_select(-2, ri).index_select(-1, ci)
+
+
+def dense_lk_level(
+    prev: torch.Tensor,
+    next_: torch.Tensor,
+    flow_init: Optional[torch.Tensor],
+    cfg: LKConfig = LKConfig(),
+    dense_cfg: DenseLKConfig = DenseLKConfig(),
+    max_disp: int | None = None,
+    coarse_planes_init: Optional[torch.Tensor] = None,
+    planes_out: bool = False,
+) -> DenseFlowResult:
+    """One pyramid level of window-coherent dense LK (the grads-fused form).
+
+    prev/next_: (H, W).  flow_init: (H, W, 2), or None with
+    coarse_planes_init (2, H/2, W/2) — the coarser level's flow planes,
+    upsampled inside the level.  planes_out returns flow as (2, H, W).
+    The level is edge-padded to its tile geometry and cropped after."""
+    if not (dense_cfg.use_pallas_warp or dense_cfg.use_pallas_fused):
+        raise NotImplementedError(_XLA_LEVEL)
+    if not (dense_cfg.use_pallas_fused and dense_cfg.fused_grads_in_kernel):
+        raise NotImplementedError(_PRECOMPUTED_A)
+    win_w, win_h = cfg.win_size
+    if win_w != win_h:
+        raise ValueError("the fused level needs a square window")
+    r_disp = dense_cfg.max_disp if max_disp is None else max_disp
+    prev = prev.to(torch.float32)
+    next_ = next_.to(torch.float32)
+    h0, w0 = prev.shape[-2:]
+    grads_resident, th, tw, hp, wp = pallas_level_geometry(h0, w0, dense_cfg)
+    if grads_resident and coarse_planes_init is not None:
+        raise ValueError("the resident level takes no coarse input")
+    if coarse_planes_init is not None:
+        if (hp, wp) != (h0, w0):
+            raise ValueError("coarse-chain levels must be pad-free")
+        flow_in = coarse_planes_init.to(torch.float32)
+    else:
+        flow_in = _edge_pad(flow_init.to(torch.float32).movedim(-1, 0),
+                            hp, wp)
+    flow, min_eig, valid = fused_lk_level(
+        _edge_pad(prev, hp, wp)[None], _edge_pad(next_, hp, wp)[None],
+        flow_in[None].contiguous(), tile_h=th, tile_w=tw, max_disp=r_disp,
+        local=dense_cfg.warp_local, n_iters=dense_cfg.outer_iters,
+        coarse_in=coarse_planes_init is not None,
+        min_eig_threshold=cfg.min_eig_threshold, win_k=win_h)
+    flow = flow[0, :, :h0, :w0]
+    return DenseFlowResult(
+        flow=flow if planes_out else flow.movedim(0, -1),
+        min_eig=min_eig[0, :h0, :w0], valid=valid[0, :h0, :w0])
+
+
+def dense_pyramidal_lk_batched(prev, next_, cfg=LKConfig(),
+                               dense_cfg=DenseLKConfig()):
+    """Batched dense flow via row-folding — not ported yet."""
+    raise NotImplementedError(_BATCHED)
+
+
+def _upsample_flow(planes: torch.Tensor, dst_h: int, dst_w: int
+                   ) -> torch.Tensor:
+    return upsample2_linear(planes, dst_h, dst_w) * 2.0
+
+
+def dense_pyramidal_lk(
+    prev: torch.Tensor,
+    next_: torch.Tensor,
+    cfg: LKConfig = LKConfig(),
+    init_flow: Optional[torch.Tensor] = None,
+    dense_cfg: DenseLKConfig = DenseLKConfig(),
+) -> DenseFlowResult:
+    """Coarse-to-fine dense LK over one (H, W) pair; returns level-0 flow."""
+    if dense_cfg.pallas_pyramid:
+        raise NotImplementedError(_PALLAS_PYR)
+    cfg = _effective_cfg(cfg, dense_cfg, prev.shape[-2:])
+    h_true, w_true = prev.shape[-2:]
+    return dense_flow_from_levels(
+        build_frame_levels(prev, cfg, dense_cfg),
+        build_frame_levels(next_, cfg, dense_cfg), cfg, dense_cfg,
+        (h_true, w_true), init_flow=init_flow)
+
+
+def pyramid_base_geometry(
+    h_true: int, w_true: int, cfg: LKConfig, dense_cfg: DenseLKConfig
+) -> tuple[int, int]:
+    """Padded pyramid-base geometry under ``pallas_pyramid`` (1080x1920 ->
+    1088x2048 in production), taken only when the video plan accepts it."""
+    cfg = _effective_cfg(cfg, dense_cfg, (h_true, w_true))
+    if not (dense_cfg.pallas_pyramid and cfg.max_level > 0):
+        return h_true, w_true
+    n0 = dense_cfg.level_iters(0)
+    fuse0 = dense_cfg.use_pallas_fused or (
+        dense_cfg.use_pallas_warp
+        and (dense_cfg.fused_grads_in_kernel
+             or n0 >= dense_cfg.fused_from_iters))
+    if fuse0 or dense_cfg.use_pallas_warp:
+        l0_cfg = dataclasses.replace(
+            dense_cfg, outer_iters=n0, use_pallas_fused=fuse0,
+            warp_local=dense_cfg.level_local(0),
+            fused_resident_max_h=0)
+        _, _, _, hp, wp = pallas_level_geometry(h_true, w_true, l0_cfg)
+    else:
+        hp, wp = h_true, w_true
+    hp = -(-hp // 16) * 16
+    if (hp, wp) != (h_true, w_true) and _video_level_plan(
+            cfg, dense_cfg, (hp, wp), true_hw=(h_true, w_true)) is None:
+        return h_true, w_true
+    return hp, wp
+
+
+def build_frame_levels(
+    frame: torch.Tensor,
+    cfg: LKConfig = LKConfig(),
+    dense_cfg: DenseLKConfig = DenseLKConfig(),
+) -> tuple:
+    """Pyramid levels of a frame, or of a (N, H, W) stack of frames: the
+    base edge-padded to ``pyramid_base_geometry``, then ``pyr_down``."""
+    if dense_cfg.padded_build:
+        raise NotImplementedError(_PADDED_BUILD)
+    cfg = _effective_cfg(cfg, dense_cfg, frame.shape[-2:])
+    h_true, w_true = frame.shape[-2:]
+    hp, wp = pyramid_base_geometry(h_true, w_true, cfg, dense_cfg)
+    levels = [_edge_pad(frame.to(torch.float32), hp, wp)]
+    for _ in range(cfg.max_level):
+        levels.append(pyr_down(levels[-1], fast=dense_cfg.fast_pyramid))
+    return tuple(levels)
+
+
+class _LevelPlan(NamedTuple):
+    """Static per-level geometry of the video chain."""
+    h: int
+    w: int
+    th: int
+    tw: int
+    resident: bool
+    iters: int
+    local: int
+    disp: int
+
+
+def _video_level_plan(
+    cfg: LKConfig, dense_cfg: DenseLKConfig, base_hw: tuple[int, int],
+    true_hw: tuple[int, int] | None = None,
+) -> Optional[tuple]:
+    """Per-level geometry of the video chain, or None when the config or
+    geometry cannot run it (the caller then takes the per-call path).
+
+    Accept/reject exactly as ``lk_tpu``: every level pad-free at its tile
+    geometry, the top level one resident tile, every finer level a
+    single-iteration coarse-chain consumer with th % 16 == 0 and
+    tw % 256 == 0.  ``lk_tpu``'s unified pad tuple is not carried: the
+    port reads borders by clamped address."""
+    cfg = _effective_cfg(cfg, dense_cfg, true_hw or base_hw)
+    if not (dense_cfg.use_pallas_warp or dense_cfg.use_pallas_fused):
+        return None
+    if not dense_cfg.fused_grads_in_kernel or not dense_cfg.fused_coarse_chain:
+        return None
+    top = cfg.max_level
+    if cfg.win_size[0] != cfg.win_size[1]:
+        return None
+    hs, ws = [base_hw[0]], [base_hw[1]]
+    for _ in range(top):
+        if hs[-1] % 2 or ws[-1] % 2:
+            return None
+        hs.append(hs[-1] // 2)
+        ws.append(ws[-1] // 2)
+    plan = []
+    for level in range(top + 1):
+        n_it = dense_cfg.level_iters(level)
+        local = dense_cfg.level_local(level)
+        disp = dense_cfg.level_disp(level)
+        lcfg = dataclasses.replace(
+            dense_cfg, outer_iters=n_it, use_pallas_fused=True,
+            warp_local=local,
+            fused_resident_max_h=(dense_cfg.fused_resident_max_h
+                                  if level == top else 0))
+        g_res, th, tw, hp, wp = pallas_level_geometry(hs[level], ws[level],
+                                                      lcfg)
+        if (hp, wp) != (hs[level], ws[level]):
+            return None
+        if level == top:
+            if not g_res:
+                return None
+            th, tw = hs[level], ws[level]
+        else:
+            if g_res or n_it != 1 or th % 16 or tw % 256:
+                return None
+        plan.append(_LevelPlan(hs[level], ws[level], th, tw,
+                               level == top, n_it, local, disp))
+    return tuple(plan)
+
+
+def _unified_pad_geometry(tile_h: int, tile_w: int, max_disp: int,
+                          local: int) -> tuple[int, int, int, int]:
+    """(top, bottom, left, right) pads of ``lk_tpu``'s unified prepadded
+    level layout (pallas_kernels.unified_pad_geometry), for stripping."""
+    eth, etw = tile_h + 2 * HALO, tile_w + 2 * HALO
+    sh = -(-(eth + 2 * local + 8) // 8) * 8
+    sw = 128
+    while sw < etw + 2 * local + 1 + 127:
+        sw *= 2
+    pad_t = max_disp + local + HALO + 8
+    pad_b = max_disp + local + (sh - eth) + HALO + 16
+    pad_r = max_disp + local + (sw - etw) + HALO + 16
+    etw_dma_p = -(-(tile_w + 128 + HALO + 1) // 128) * 128
+    pt = -(-max(pad_t, 16) // 8) * 8
+    return pt, max(pad_b, 16), 128, max(pad_r, etw_dma_p - tile_w - 128)
+
+
+def levels_from_numpy(levels, plan: tuple, device=None) -> tuple:
+    """The carried state across the two packages: ``lk_tpu``'s unified
+    prepadded pyramid levels (numpy, (..., Hp, Wp) per level) with the pads
+    stripped, as this port's unpadded levels on ``device``."""
+    if len(levels) != len(plan):
+        raise ValueError(f"{len(levels)} levels for a {len(plan)}-level plan")
+    out = []
+    for arr, p in zip(levels, plan):
+        pt, pb, pl, pr = _unified_pad_geometry(p.th, p.tw, p.disp, p.local)
+        if arr.shape[-2:] != (pt + p.h + pb, pl + p.w + pr):
+            raise ValueError(f"level shape {arr.shape} does not match the "
+                             f"plan entry {p}")
+        core = arr[..., pt:pt + p.h, pl:pl + p.w]
+        out.append(torch.as_tensor(core.copy(), dtype=torch.float32,
+                                   device=device))
+    return tuple(out)
+
+
+def dense_flow_from_levels_prepadded(
+    prev_levels: tuple,
+    next_levels: tuple,
+    cfg: LKConfig,
+    dense_cfg: DenseLKConfig,
+    true_hw: tuple[int, int],
+    plan: tuple,
+    init_flow: Optional[torch.Tensor] = None,
+    return_top_flow: bool = False,
+):
+    """Coarse-to-fine refinement of one pair along the video plan.
+
+    prev_levels/next_levels: per-level (h, w) planes at the plan sizes (the
+    port carries them unpadded).  The top level runs as one resident tile,
+    every finer level consumes the coarser flow as half-resolution planes;
+    only level 0 writes (min_eig, valid).  init_flow seeds the top level
+    ((h_top, w_top, 2)); return_top_flow also returns its converged flow."""
+    cfg = _effective_cfg(cfg, dense_cfg, true_hw)
+    h_true, w_true = true_hw
+    top = cfg.max_level
+    p = plan[top]
+    dev = prev_levels[top].device
+    if init_flow is None:
+        seed = torch.zeros((1, 2, p.h, p.w), dtype=torch.float32, device=dev)
+    else:
+        if tuple(init_flow.shape) != (p.h, p.w, 2):
+            raise ValueError(f"init_flow shape {tuple(init_flow.shape)}")
+        seed = init_flow.to(torch.float32).movedim(-1, 0)[None].contiguous()
+    flow, min_eig, valid = fused_lk_level(
+        prev_levels[top][None], next_levels[top][None], seed,
+        tile_h=p.h, tile_w=p.w, max_disp=p.disp, local=p.local,
+        n_iters=p.iters, min_eig_threshold=cfg.min_eig_threshold,
+        win_k=cfg.win_size[1])
+    top_flow = flow[0].movedim(0, -1) if return_top_flow else None
+    for level in range(top - 1, -1, -1):
+        p = plan[level]
+        flow, me, va = fused_lk_level(
+            prev_levels[level][None], next_levels[level][None], flow,
+            tile_h=p.th, tile_w=p.tw, max_disp=p.disp, local=p.local,
+            coarse_in=True, write_stats=(level == 0),
+            min_eig_threshold=cfg.min_eig_threshold, win_k=cfg.win_size[1])
+        if level == 0:
+            min_eig, valid = me, va
+    result = DenseFlowResult(
+        flow=flow[0, :, :h_true, :w_true].movedim(0, -1),
+        min_eig=min_eig[0, :h_true, :w_true],
+        valid=valid[0, :h_true, :w_true],
+    )
+    if return_top_flow:
+        return result, top_flow
+    return result
+
+
+def dense_flow_chunk_prepadded(
+    frames_chunk: torch.Tensor,
+    cfg: LKConfig,
+    dense_cfg: DenseLKConfig,
+    true_hw: tuple[int, int],
+    plan: tuple,
+) -> DenseFlowResult:
+    """Dense flow over a chunk of K+1 frames (K cold pairs), each level one
+    fused-level call over all K pairs.  frames_chunk: (K+1, H, W).
+
+    Per pair bit-identical to the per-frame chain: the level runs the same
+    per-pixel arithmetic whatever K, and ``pyr_down`` is elementwise over
+    the frame axis."""
+    cfg = _effective_cfg(cfg, dense_cfg, true_hw)
+    h_true, w_true = true_hw
+    top = cfg.max_level
+    if len(plan) != top + 1:
+        raise ValueError(f"{len(plan)}-level plan for max_level {top}")
+    stacks = build_frame_levels(frames_chunk, cfg, dense_cfg)
+    for st, p in zip(stacks, plan):
+        if tuple(st.shape[1:]) != (p.h, p.w):
+            raise ValueError(f"level {tuple(st.shape)} does not match {p}")
+    k = frames_chunk.shape[0] - 1
+    p = plan[top]
+    st = stacks[top]
+    seed = torch.zeros((k, 2, p.h, p.w), dtype=torch.float32,
+                       device=st.device)
+    flow, min_eig, valid = fused_lk_level(
+        st[:-1], st[1:], seed, tile_h=p.h, tile_w=p.w, max_disp=p.disp,
+        local=p.local, n_iters=p.iters,
+        min_eig_threshold=cfg.min_eig_threshold, win_k=cfg.win_size[1])
+    for level in range(top - 1, -1, -1):
+        p = plan[level]
+        st = stacks[level]
+        flow, me, va = fused_lk_level(
+            st[:-1], st[1:], flow, tile_h=p.th, tile_w=p.tw,
+            max_disp=p.disp, local=p.local, coarse_in=True,
+            write_stats=(level == 0),
+            min_eig_threshold=cfg.min_eig_threshold, win_k=cfg.win_size[1])
+        if level == 0:
+            min_eig, valid = me, va
+    return DenseFlowResult(
+        flow=flow[:, :, :h_true, :w_true].movedim(1, -1),
+        min_eig=min_eig[:, :h_true, :w_true],
+        valid=valid[:, :h_true, :w_true],
+    )
+
+
+def _stack(results: list) -> DenseFlowResult:
+    return DenseFlowResult(*(torch.stack(x) for x in zip(*results)))
+
+
+def _cat(parts: list) -> DenseFlowResult:
+    return DenseFlowResult(*(torch.cat(x) for x in zip(*parts)))
+
+
+def dense_pyramidal_lk_video(
+    frames: torch.Tensor,
+    cfg: LKConfig = LKConfig(),
+    dense_cfg: DenseLKConfig = DenseLKConfig(),
+) -> DenseFlowResult:
+    """Dense pyramidal LK over a video: (T, H, W) -> flows (T-1, H, W, 2).
+
+    Each frame's pyramid is built once and carried to the next pair.  With
+    ``video_chunk`` > 1 (and no warm start) pairs run in chunks of that
+    many cold pairs, the leftover pairs through the per-frame chain.  With
+    ``video_warm_start`` the top level of each pair after the first is
+    seeded with the previous pair's converged top flow and runs
+    ``warm_top_iters``."""
+    if frames.ndim != 3 or frames.shape[0] < 2:
+        raise ValueError(f"frames must be (T >= 2, H, W), got "
+                         f"{tuple(frames.shape)}")
+    if dense_cfg.padded_build:
+        raise NotImplementedError(_PADDED_BUILD)
+    h_true, w_true = frames.shape[-2:]
+    hw = (h_true, w_true)
+    cfg = _effective_cfg(cfg, dense_cfg, hw)
+    t_total = frames.shape[0]
+    plan = _video_level_plan(
+        cfg, dense_cfg, pyramid_base_geometry(h_true, w_true, cfg, dense_cfg),
+        true_hw=hw)
+    chunk = dense_cfg.video_chunk
+    if (plan is not None and chunk > 1 and t_total - 1 >= chunk
+            and not dense_cfg.video_warm_start):
+        n_chunks = (t_total - 1) // chunk
+        parts = [dense_flow_chunk_prepadded(
+            frames[c * chunk:c * chunk + chunk + 1], cfg, dense_cfg, hw, plan)
+            for c in range(n_chunks)]
+        if (t_total - 1) - n_chunks * chunk:
+            tail_cfg = dataclasses.replace(dense_cfg, video_chunk=0)
+            parts.append(dense_pyramidal_lk_video(
+                frames[n_chunks * chunk:], cfg, tail_cfg))
+        return _cat(parts)
+
+    def chain(levels_a, levels_b, d_cfg, pl, seed=None, want_top=False):
+        if pl is not None:
+            return dense_flow_from_levels_prepadded(
+                levels_a, levels_b, cfg, d_cfg, hw, pl, init_flow=seed,
+                return_top_flow=want_top)
+        return dense_flow_from_levels(
+            levels_a, levels_b, cfg, d_cfg, hw, init_flow=seed,
+            return_top_flow=want_top)
+
+    warm_cfg = warm_plan = None
+    if dense_cfg.video_warm_start and t_total > 2:
+        warm_cfg = dataclasses.replace(
+            dense_cfg,
+            iter_schedule=tuple(dense_cfg.level_iters(lv)
+                                for lv in range(cfg.max_level))
+            + (dense_cfg.warm_top_iters,))
+        if plan is not None:
+            warm_plan = _video_level_plan(
+                cfg, warm_cfg,
+                pyramid_base_geometry(h_true, w_true, cfg, warm_cfg),
+                true_hw=hw)
+            if warm_plan is None:      # lk_tpu falls back to the per-call
+                plan = None            # chain for the whole warm video
+    levels = build_frame_levels(frames[0], cfg, dense_cfg)
+    results = []
+    seed = None
+    for t in range(1, t_total):
+        nxt = build_frame_levels(frames[t], cfg, dense_cfg)
+        if warm_cfg is None:
+            results.append(chain(levels, nxt, dense_cfg, plan))
+        elif t == 1:       # cold first pair seeds the warm chain
+            res, seed = chain(levels, nxt, dense_cfg, plan, want_top=True)
+            results.append(res)
+        else:
+            res, seed = chain(levels, nxt, warm_cfg, warm_plan, seed=seed,
+                              want_top=True)
+            results.append(res)
+        levels = nxt
+    return _stack(results)
+
+
+def dense_pyramidal_lk_multistream(
+    frames: torch.Tensor,
+    cfg: LKConfig = LKConfig(),
+    dense_cfg: DenseLKConfig = DenseLKConfig(),
+) -> DenseFlowResult:
+    """Dense video flow over N independent streams: (N, T, H, W) -> flows
+    (N, T-1, H, W, 2), one stream after the other."""
+    if frames.ndim != 4:
+        raise ValueError(f"frames must be (N, T, H, W), got "
+                         f"{tuple(frames.shape)}")
+    return _stack([dense_pyramidal_lk_video(fr, cfg, dense_cfg)
+                   for fr in frames])
+
+
+def dense_flow_from_levels(
+    prev_levels,
+    next_levels,
+    cfg: LKConfig,
+    dense_cfg: DenseLKConfig,
+    true_hw: tuple[int, int],
+    init_flow: Optional[torch.Tensor] = None,
+    return_top_flow: bool = False,
+):
+    """Coarse-to-fine refinement over prebuilt pyramid levels (the per-call
+    path: each level padded to its tile geometry inside dense_lk_level).
+
+    init_flow seeds the top level ((h, w, 2), edge-padded if sized for the
+    unpadded top); return_top_flow also returns the converged top flow."""
+    cfg = _effective_cfg(cfg, dense_cfg, true_hw)
+    h_true, w_true = true_hw
+    top = cfg.max_level
+    h_top, w_top = prev_levels[top].shape[-2:]
+    dev = prev_levels[top].device
+    if init_flow is None:
+        flow = torch.zeros((h_top, w_top, 2), dtype=torch.float32,
+                           device=dev)
+    else:
+        flow = init_flow.to(torch.float32)
+        if tuple(flow.shape[:2]) != (h_top, w_top):
+            flow = _edge_pad(flow.movedim(-1, 0), h_top, w_top).movedim(0, -1)
+
+    level_cfgs = []
+    for level in range(top + 1):
+        n_it = dense_cfg.level_iters(level)
+        fuse = dense_cfg.use_pallas_fused or (
+            dense_cfg.use_pallas_warp
+            and (dense_cfg.fused_grads_in_kernel
+                 or n_it >= dense_cfg.fused_from_iters)
+        )
+        level_cfgs.append(dataclasses.replace(
+            dense_cfg, outer_iters=n_it, use_pallas_fused=fuse,
+            warp_local=dense_cfg.level_local(level),
+            fused_resident_max_h=(dense_cfg.fused_resident_max_h
+                                  if level == top else 0),
+        ))
+
+    def _grads_path(level: int) -> bool:
+        c = level_cfgs[level]
+        return c.use_pallas_fused and c.fused_grads_in_kernel
+
+    coarse_ok = [False] * (top + 1)
+    for level in range(top if dense_cfg.fused_coarse_chain else 0):
+        c = level_cfgs[level]
+        if not (_grads_path(level) and _grads_path(level + 1)
+                and c.outer_iters == 1):
+            continue
+        h, w = prev_levels[level].shape[-2:]
+        h2, w2 = prev_levels[level + 1].shape[-2:]
+        if (h2, w2) != (h // 2, w // 2):
+            continue
+        g_res, th, tw, hp, wp = pallas_level_geometry(h, w, c)
+        coarse_ok[level] = (not g_res and (hp, wp) == (h, w)
+                            and th % 16 == 0 and tw % 256 == 0)
+
+    result = None
+    top_flow = None
+    planes = False     # whether `flow` carries (2, h, w) plane layout
+    for level in range(top, -1, -1):
+        use_coarse = level != top and coarse_ok[level] and planes
+        if level != top and not use_coarse:
+            h, w = prev_levels[level].shape[-2:]
+            if not planes:
+                flow = flow.movedim(-1, 0)
+            flow = _upsample_flow(flow, h, w).movedim(0, -1)
+        want_planes = level > 0 and coarse_ok[level - 1]
+        result = dense_lk_level(
+            prev_levels[level], next_levels[level],
+            None if use_coarse else flow, cfg, level_cfgs[level],
+            max_disp=dense_cfg.level_disp(level),
+            coarse_planes_init=flow if use_coarse else None,
+            planes_out=want_planes,
+        )
+        flow = result.flow
+        planes = want_planes
+        if level == top and return_top_flow:
+            top_flow = flow.movedim(0, -1) if planes else flow
+    if tuple(result.flow.shape[:2]) != (h_true, w_true):
+        result = DenseFlowResult(
+            flow=result.flow[:h_true, :w_true],
+            min_eig=result.min_eig[:h_true, :w_true],
+            valid=result.valid[:h_true, :w_true],
+        )
+    if return_top_flow:
+        return result, top_flow
+    return result
