@@ -1,20 +1,35 @@
 """lk_tpu_torch — the PyTorch/CUDA port of ``lk_tpu`` for NVIDIA Hopper.
 
 A second package beside ``lk_tpu`` (the JAX reference it is held against).
-It imports ``torch`` and never ``jax``; the configs are ``lk_tpu.config``'s
-frozen dataclasses, re-exported here.
+It imports ``torch`` and nothing of ``jax`` or ``lk_tpu``: the configs are
+its own copy (``lk_tpu_torch.config``, presets in ``lk_tpu_torch.models``).
+Entry points that build their own state or take numpy put it on the card
+(``device="cuda"``) unless the caller names another device; functions that
+take tensors run where those tensors are.
 
 Subpackages
 -----------
-ops        image primitives of the dense path (pyr_down, upsample2_linear)
-flow       dense pyramidal LK and its fused level (CUDA kernel + plain torch)
+ops        image primitives: pyramid, blur, gradients, box sums, resize,
+           ROI masks, color, tone, and the serving finish (CUDA + plain)
+features   Shi–Tomasi corners
+flow       dense pyramidal LK (fused level: CUDA + plain) and the batched
+           sparse tracker (window gather: CUDA + plain)
+geometry   flow lines, cross points, the VP state machine, motion classes
+pipeline   batched VP serving: state, step, MultiStreamPipeline
 csrc       CUDA sources, built with nvcc at first use (_build.py)
 """
 
-from lk_tpu.config import DenseLKConfig, LKConfig  # noqa: F401
+from lk_tpu_torch.config import (  # noqa: F401
+    DenseLKConfig,
+    FeatureConfig,
+    LKConfig,
+    PipelineConfig,
+    ROIConfig,
+)
 from lk_tpu_torch.flow.dense import (  # noqa: F401
     DenseFlowResult,
     dense_pyramidal_lk,
     dense_pyramidal_lk_multistream,
     dense_pyramidal_lk_video,
 )
+from lk_tpu_torch.pipeline.runner import MultiStreamPipeline  # noqa: F401

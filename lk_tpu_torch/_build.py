@@ -2,10 +2,11 @@
 
 The ``.cu`` sources under ``csrc/`` are compiled with ``nvcc`` at first use
 into ``lk_tpu_torch/_build/<key>/``, ``key`` being a hash of the sources and
-the flags, as one shared library with a plain C interface that ``ctypes``
-loads.  A later process with the same sources loads the library it finds.
-Nothing is downloaded; ``nvcc`` comes from ``CUDA_HOME``, ``PATH`` or the
-toolkit's default prefix.
+the flags: one ``nvcc`` per source, all started together, then one link into
+a shared library with a plain C interface that ``ctypes`` loads.  A later
+process with the same sources loads the library it finds.  Nothing is
+downloaded; ``nvcc`` comes from ``CUDA_HOME``, ``PATH`` or the toolkit's
+default prefix.
 """
 
 from __future__ import annotations
@@ -20,13 +21,13 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
-SOURCES = ("csrc/fused_lk_level.cu",)
+SOURCES = ("csrc/fused_lk_level.cu", "csrc/finish.cu",
+           "csrc/window_gather.cu")
 # sm_90a: Hopper.  --fmad=false: no FMA contraction (see the .cu header).
 # -Xptxas -v: registers, shared memory and spills of each kernel, kept in
 # the build log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -66,19 +67,39 @@ def _compile(out_dir: Path) -> Path:
             if (out_dir / "build.log").exists() else ""
         return so
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"liblk_kernels.{os.getpid()}.tmp.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(_PKG / s) for s in SOURCES)]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{log}")
+    objs, procs = [], []
+    for src in SOURCES:
+        obj = out_dir / f"{Path(src).stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(_PKG / src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(f"$ {' '.join(cmd)}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed with code {proc.returncode}")
+    tmp = out_dir / f"liblk_kernels.{tag}.so"
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        link = subprocess.run(cmd, capture_output=True, text=True,
+                              check=False)
+        logs.append(f"$ {' '.join(cmd)}\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append(f"link failed with code {link.returncode}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    log = "\n".join(logs)
+    if failed:
+        raise RuntimeError("; ".join(failed) + ":\n" + log)
     (out_dir / "build.log").write_text(log)
     os.replace(tmp, so)     # atomic: a concurrent loader sees all or nothing
-    build_seconds, build_log = seconds, log
+    build_seconds, build_log = time.perf_counter() - t0, log
     return so
 
 
@@ -87,9 +108,11 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            from lk_tpu_torch.flow.lk_kernels import bind
+            from lk_tpu_torch.flow import lk_kernels, sparse
+            from lk_tpu_torch.ops import finish
 
             lib = ctypes.CDLL(str(_compile(build_dir())))
-            bind(lib)
+            for module in (lk_kernels, finish, sparse):
+                module.bind(lib)
             _lib = lib
     return _lib

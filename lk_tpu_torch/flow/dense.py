@@ -1,12 +1,16 @@
 """Dense pyramidal Lucas–Kanade optical flow (PyTorch port).
 
 Counterpart of ``lk_tpu/flow/dense.py`` with the same names, the same
-configs (``lk_tpu.config``) and the same numerics contract: the
+configs (the port's copy, ``lk_tpu_torch.config``) and the same numerics
+contract: the
 window-coherent inverse-compositional formulation, one fused level
 (``lk_kernels.fused_lk_level``) per pyramid level, coarse-to-fine.
 
-Functions run where their inputs are: CPU tensors through the plain
-PyTorch level, CUDA tensors through the hand-written CUDA kernel.
+Functions that take tensors run where their inputs are (the tensor's
+device is the caller's choice): CPU tensors through the plain PyTorch
+level, CUDA tensors through the hand-written CUDA kernel.  The one entry
+point that takes numpy, ``levels_from_numpy``, puts its tensors on the card
+(``device="cuda"``) unless the caller names another device.
 
 What the TPU layout needed and this port drops: the unified pad layouts
 (borders are read by clamped address, so levels stay unpadded) and the
@@ -22,7 +26,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from lk_tpu.config import DenseLKConfig, LKConfig
+from lk_tpu_torch.config import DenseLKConfig, LKConfig
 from lk_tpu_torch.flow.lk_kernels import (fused_lk_level, pick_tile_w,
                                           HALO)
 from lk_tpu_torch.ops.blur import pyr_down
@@ -327,7 +331,7 @@ def _unified_pad_geometry(tile_h: int, tile_w: int, max_disp: int,
     return pt, max(pad_b, 16), 128, max(pad_r, etw_dma_p - tile_w - 128)
 
 
-def levels_from_numpy(levels, plan: tuple, device=None) -> tuple:
+def levels_from_numpy(levels, plan: tuple, device="cuda") -> tuple:
     """The carried state across the two packages: ``lk_tpu``'s unified
     prepadded pyramid levels (numpy, (..., Hp, Wp) per level) with the pads
     stripped, as this port's unpadded levels on ``device``."""

@@ -1,0 +1,410 @@
+"""The batched sparse pyramidal Lucas–Kanade tracker (PyTorch port).
+
+Counterpart of ``lk_tpu/flow/sparse.py``'s batched tracker:
+``_level_row_bands``, ``fold_tracking_levels``, ``track_points_batched`` and
+``track_points_batched_prepped``, with OpenCV's semantics as there (Scharr
+gradients of the previous frame sampled with the window's bilinear weights,
+min-eig/area gate, <= max_iters Newton steps with the eps stop and the
+oscillation half-step, status and err at level 0).
+
+The window gather is ``gather_windows``, the counterpart of
+``_gather_windows_pallas``: a CUDA tensor goes to the kernel
+``lk_tpu_torch/csrc/window_gather.cu``, a CPU tensor to
+``gather_windows_reference`` (full-frame Scharr of the folded level, then
+index gathers — the JAX package's ``pallas_windows=False`` path).  The two
+agree bit for bit.  ``LKConfig.pallas_windows`` and ``fast_pyramid`` are
+accepted and ignored: the pyramid is always the exact f32 ``pyr_down``.
+
+Translation notes:
+
+* ``vmap`` over points is the leading point axis, ``lax.while_loop`` over
+  ``any(active)`` runs exactly ``cfg.max_iters`` masked iterations with no
+  host sync.  That is the same function: once every point is inactive an
+  iteration changes nothing (its step, ``inside_ok`` and ``active`` are all
+  masked by ``active``), and the iteration count only feeds ``osc``.
+* ``sample_next``'s shift-select sum over every offset is a TPU workaround;
+  here it is a direct gather of the two taps per axis, ``(1-g)*a + g*b``:
+  the other terms of the TPU form are exact zeros added in ascending order,
+  so the two are the same arithmetic.
+
+Functions run where their tensors are.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+from torch.profiler import record_function
+
+from lk_tpu_torch.config import LKConfig
+from lk_tpu_torch.ops.blur import pyr_down, reflect101_index
+from lk_tpu_torch.ops.gradients import scharr_derivatives
+
+# superwindow of `next` fetched per point per level (lk_tpu's _SW_ROWS/COLS)
+_SW_ROWS = 32
+_SW_COLS = 48
+# level rows kept beyond a tracker row band (lk_tpu's _BAND_MARGIN)
+_BAND_MARGIN = 64
+
+# Kernel launches of the CUDA gather, and calls of the plain version.
+kernel_launches = 0
+plain_calls = 0
+
+
+def reset_counters() -> None:
+    global kernel_launches, plain_calls
+    kernel_launches = plain_calls = 0
+
+
+# ---------------------------------------------------------------------------
+# window gather: kernel wrapper and plain version
+# ---------------------------------------------------------------------------
+
+def _check_gather(prev_f, next_f, cy, cx, sy, sx):
+    if prev_f.ndim != 2 or next_f.shape != prev_f.shape:
+        raise ValueError(f"folded levels must be (FH, FW): "
+                         f"{tuple(prev_f.shape)} {tuple(next_f.shape)}")
+    for name, t in (("prev", prev_f), ("next", next_f)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    n = cy.shape[0]
+    for name, t in (("cy", cy), ("cx", cx), ("sy", sy), ("sx", sx)):
+        if t.shape != (n,) or t.dtype not in (torch.int32, torch.int64):
+            raise ValueError(f"{name}: ({n},) integer corners expected, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    for t in (next_f, cy, cx, sy, sx):
+        if t.device != prev_f.device:
+            raise ValueError(f"gather inputs on {t.device} and "
+                             f"{prev_f.device}")
+
+
+def gather_windows(prev_f, next_f, cy, cx, sy, sx, win_h, win_w, sw_h, sw_w):
+    """Per-point windows of the folded levels: ``raw`` (n, 3, win_h+1,
+    win_w+1) — prev, Scharr ix, Scharr iy at corner (cy, cx) — and ``sw``
+    (n, sw_h, sw_w), next at corner (sy, sx).  Corners clamp into the
+    array as ``jax.lax.dynamic_slice`` clamps them."""
+    if prev_f.device.type == "cpu":
+        return gather_windows_reference(prev_f, next_f, cy, cx, sy, sx,
+                                        win_h, win_w, sw_h, sw_w)
+    if prev_f.device.type != "cuda":
+        raise ValueError(f"gather_windows: unsupported device "
+                         f"{prev_f.device}")
+    return _gather_windows_cuda(prev_f, next_f, cy, cx, sy, sx, win_h, win_w,
+                                sw_h, sw_w)
+
+
+def _crop_index(start, size, limit):
+    """(n, size) row/col indices of dynamic_slice crops (start clamped)."""
+    s = start.to(torch.int64).clamp(0, limit - size)
+    return s[:, None] + torch.arange(size, device=start.device)
+
+
+def gather_windows_reference(prev_f, next_f, cy, cx, sy, sx, win_h, win_w,
+                             sw_h, sw_w):
+    """Plain PyTorch form of ``gather_windows``."""
+    global plain_calls
+    _check_gather(prev_f, next_f, cy, cx, sy, sx)
+    plain_calls += 1
+    fh, fw = prev_f.shape
+    ix, iy = scharr_derivatives(prev_f)
+    stack3 = torch.stack([prev_f, ix, iy])
+    rows = _crop_index(cy, win_h + 1, fh)
+    cols = _crop_index(cx, win_w + 1, fw)
+    raw = stack3[:, rows[:, :, None], cols[:, None, :]].transpose(0, 1)
+    rows = _crop_index(sy, sw_h, fh)
+    cols = _crop_index(sx, sw_w, fw)
+    sw = next_f[rows[:, :, None], cols[:, None, :]]
+    return raw.contiguous(), sw
+
+
+def _gather_windows_cuda(prev_f, next_f, cy, cx, sy, sx, win_h, win_w, sw_h,
+                         sw_w):
+    global kernel_launches
+    from lk_tpu_torch import _build
+
+    _check_gather(prev_f, next_f, cy, cx, sy, sx)
+    if not (prev_f.is_contiguous() and next_f.is_contiguous()):
+        raise ValueError("gather_windows: folded levels must be contiguous")
+    if (win_h + 3) * (win_w + 3) * 4 > 48 * 1024:
+        raise ValueError(f"window {win_w}x{win_h} too large for the kernel")
+    fh, fw = prev_f.shape
+    if fh < max(win_h + 1, sw_h, 2) or fw < max(win_w + 1, sw_w, 2):
+        raise ValueError(f"folded level {fh}x{fw} smaller than its windows")
+    lib = _build.library()
+    n = cy.shape[0]
+    dev = prev_f.device
+    corners = [t.to(torch.int32).contiguous() for t in (cy, cx, sy, sx)]
+    raw = torch.empty((n, 3, win_h + 1, win_w + 1), dtype=torch.float32,
+                      device=dev)
+    sw = torch.empty((n, sw_h, sw_w), dtype=torch.float32, device=dev)
+    rc = lib.lk_window_gather_launch(
+        prev_f.data_ptr(), next_f.data_ptr(),
+        *(t.data_ptr() for t in corners), raw.data_ptr(), sw.data_ptr(),
+        n, fh, fw, win_h, win_w, sw_h, sw_w,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"window gather kernel launch failed: CUDA error "
+                           f"{rc} ({lib.lk_error_string(rc).decode()})")
+    kernel_launches += 1
+    return raw, sw
+
+
+def bind(lib: ctypes.CDLL) -> None:
+    """Declare the C interface of ``csrc/window_gather.cu``."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.lk_window_gather_launch.argtypes = [p] * 8 + [i] * 7 + [p]
+    lib.lk_window_gather_launch.restype = i
+
+
+# ---------------------------------------------------------------------------
+# pyramid fold
+# ---------------------------------------------------------------------------
+
+def _level_row_bands(h0: int, cfg: LKConfig, row_band):
+    """Per-level (r0, r1) crops of a full-res tracker row band (or None)."""
+    if row_band is None:
+        return [None] * (cfg.max_level + 1)
+    r0, r1 = row_band
+    bands, h = [], h0
+    for lv in range(cfg.max_level + 1):
+        rr0 = max(0, (r0 >> lv) - _BAND_MARGIN)
+        rr1 = min(h, -(-r1 // (1 << lv)) + _BAND_MARGIN)
+        bands.append(None if (rr0 == 0 and rr1 >= h) else (rr0, rr1))
+        h = -(-h // 2)
+    return bands
+
+
+def _fold(x3: torch.Tensor, band, pad: int) -> torch.Tensor:
+    """(B, h, w) level -> (B * (rows + 2*(pad+1)), w + 2*pad): per frame a
+    REFLECT_101 pad plus one guard row at each seam, folded along rows."""
+    b, h, w = x3.shape
+    cols = reflect101_index(w, pad, pad, x3.device)
+    if band is not None and band[0] >= pad + 1 and band[1] + pad + 1 <= h:
+        # interior band: the row pad comes from the true frame
+        x3 = x3[:, band[0] - pad - 1:band[1] + pad + 1]
+    else:
+        if band is not None:
+            x3 = x3[:, band[0]:band[1]]
+        rows = reflect101_index(x3.shape[1], pad + 1, pad + 1, x3.device)
+        x3 = x3.index_select(1, rows)
+    xp = x3.index_select(2, cols)
+    return xp.reshape(b * xp.shape[1], xp.shape[2])
+
+
+def fold_tracking_levels(imgs: torch.Tensor, cfg: LKConfig = LKConfig(),
+                         row_band=None):
+    """Pyramid + fold of a (B, H, W) frame batch for the batched tracker
+    (``lk_tpu.flow.sparse.fold_tracking_levels``): per level, the B frames
+    reflect-padded (window pad + one guard row per frame seam) and folded
+    along rows into one tall 2-D array; with ``row_band`` each level keeps
+    only that band plus ``_BAND_MARGIN`` rows per side.  The pyramid is
+    decimated before the crop."""
+    pad = max(cfg.win_size) + 2
+    levels = [imgs.to(torch.float32)]
+    for _ in range(cfg.max_level):
+        levels.append(pyr_down(levels[-1]))
+    bands = _level_row_bands(imgs.shape[1], cfg, row_band)
+    return tuple(_fold(lv, bd, pad) for lv, bd in zip(levels, bands))
+
+
+# ---------------------------------------------------------------------------
+# the tracker
+# ---------------------------------------------------------------------------
+
+def track_points_batched(prev_imgs, next_imgs, pts, valid,
+                         cfg: LKConfig = LKConfig(), row_band=None):
+    """Track (B, N, 2) points across B same-size frame pairs; returns
+    (new_pts (B, N, 2), status (B, N), err (B, N))."""
+    prev_folded = fold_tracking_levels(prev_imgs, cfg, row_band=row_band)
+    p1, st, err, _ = track_points_batched_prepped(
+        prev_folded, next_imgs, pts, valid, cfg, row_band=row_band)
+    return p1, st, err
+
+
+def _bilinear_weights(q, half_x, half_y):
+    """Integer corner and fractional offsets of windows centred at q."""
+    qx = q[:, 0] - half_x
+    qy = q[:, 1] - half_y
+    iqx = torch.floor(qx)
+    iqy = torch.floor(qy)
+    return iqx, iqy, qx - iqx, qy - iqy
+
+
+def _refine_level(raw, sw, fx, fy, next_pt, prev_inside, sy, sx, geom,
+                  cfg: LKConfig, area2, with_err: bool):
+    """One pyramid level of the batched tracker after its gather: the
+    bilinear prev/ix/iy windows and their structure tensor, the min-eig
+    gate, then ``cfg.max_iters`` masked Newton steps of every point inside
+    its superwindow ``sw`` (lk_tpu's while loop over ``any(active)``).
+
+    geom = (r0, pad, w, h_true): band origin, window pad, level width and
+    true height.  Returns (next_pt, good (inside and gated), kept (inside
+    at the end, or never refined), err (level 0 only, else None))."""
+    r0, pad, w, h_true = geom
+    nn = raw.shape[0]
+    dev = raw.device
+    win_w, win_h = cfg.win_size
+    half_x = (win_w - 1) * 0.5
+    half_y = (win_h - 1) * 0.5
+    sw_h, sw_w = sw.shape[1:]
+    w00 = ((1.0 - fx) * (1.0 - fy))[:, None, None]
+    w01 = (fx * (1.0 - fy))[:, None, None]
+    w10 = ((1.0 - fx) * fy)[:, None, None]
+    w11 = (fx * fy)[:, None, None]
+
+    def lerp4(r):
+        return (r[:, :-1, :-1] * w00 + r[:, :-1, 1:] * w01
+                + r[:, 1:, :-1] * w10 + r[:, 1:, 1:] * w11)
+
+    p_win = lerp4(raw[:, 0])
+    ix_win = lerp4(raw[:, 1])
+    iy_win = lerp4(raw[:, 2])
+    a11 = (ix_win * ix_win).sum(dim=(1, 2))
+    a12 = (ix_win * iy_win).sum(dim=(1, 2))
+    a22 = (iy_win * iy_win).sum(dim=(1, 2))
+    det = a11 * a22 - a12 * a12
+    min_eig = (a22 + a11 - torch.sqrt((a11 - a22) ** 2
+                                      + 4.0 * a12 * a12)) / area2
+    good = prev_inside & (min_eig >= cfg.min_eig_threshold * 1024.0) \
+        & (det > 1e-7)
+    inv_det = torch.where(det > 1e-7, 1.0 / det, 0.0)
+
+    max_dy = sw_h - win_h - 1
+    max_dx = sw_w - win_w - 1
+    rows_w = torch.arange(win_h, device=dev)
+    cols_w = torch.arange(win_w, device=dev)
+
+    def sample_next(q):
+        """Bilinear (win_h, win_w) windows at q inside sw: the two taps per
+        axis, rows then columns."""
+        iqx, iqy, gx, gy = _bilinear_weights(q, half_x, half_y)
+        dyi = (iqy.to(torch.int64) - r0 + pad - sy).clamp(0, max_dy)
+        dxi = (iqx.to(torch.int64) + pad - sx).clamp(0, max_dx)
+        ri = (dyi[:, None] + rows_w)[:, :, None].expand(nn, win_h, sw_w)
+        gy3 = gy[:, None, None]
+        vert = (1.0 - gy3) * sw.gather(1, ri) + gy3 * sw.gather(1, ri + 1)
+        ci = (dxi[:, None] + cols_w)[:, None, :].expand(nn, win_h, win_w)
+        gx3 = gx[:, None, None]
+        return ((1.0 - gx3) * vert.gather(2, ci)
+                + gx3 * vert.gather(2, ci + 1))
+
+    def inside_next(q):
+        iqx = torch.floor(q[:, 0] - half_x)
+        iqy = torch.floor(q[:, 1] - half_y)
+        return ((iqx >= -win_w) & (iqx < w)
+                & (iqy >= -win_h) & (iqy < h_true))
+
+    eps2 = cfg.eps * cfg.eps
+    nxt = next_pt
+    prev_delta = torch.zeros((nn, 2), dtype=torch.float32, device=dev)
+    active = good
+    inside_ok = torch.ones((nn,), dtype=torch.bool, device=dev)
+    for j in range(cfg.max_iters):
+        j_win = sample_next(nxt)
+        nx_inside = inside_next(nxt)
+        diff = j_win - p_win
+        b1 = (diff * ix_win).sum(dim=(1, 2))
+        b2 = (diff * iy_win).sum(dim=(1, 2))
+        delta = torch.stack([(a12 * b2 - a22 * b1) * inv_det,
+                             (a12 * b1 - a11 * b2) * inv_det], dim=-1)
+        step_ok = active & nx_inside
+        new_nxt = torch.where(step_ok[:, None], nxt + delta, nxt)
+        converged = (delta * delta).sum(dim=-1) <= eps2
+        still = active & nx_inside & ~converged
+        if j > 0:           # OpenCV's damping: successive steps cancel
+            osc = (((delta[:, 0] + prev_delta[:, 0]).abs() < 0.01)
+                   & ((delta[:, 1] + prev_delta[:, 1]).abs() < 0.01))
+            new_nxt = torch.where((step_ok & osc)[:, None],
+                                  new_nxt - delta * 0.5, new_nxt)
+            still = still & ~osc
+        inside_ok = torch.where(active, nx_inside, inside_ok)
+        nxt, prev_delta, active = new_nxt, delta, still
+    err = (sample_next(nxt) - p_win).abs().mean(dim=(1, 2)) \
+        if with_err else None
+    return nxt, good, inside_ok | ~good, err
+
+
+def track_points_batched_prepped(prev_folded, next_imgs, pts, valid,
+                                 cfg: LKConfig = LKConfig(), row_band=None):
+    """``track_points_batched`` with the prev batch's fold carried in;
+    also returns next's folded levels for the following step.
+
+    ``row_band`` must be the one ``prev_folded`` was built with; valid
+    points lie inside it (results for points outside sample clamped band
+    content, as in ``lk_tpu``)."""
+    b, h0, _ = next_imgs.shape
+    n = pts.shape[1]
+    nn = b * n
+    dev = next_imgs.device
+    win_w, win_h = cfg.win_size
+    pad = max(win_w, win_h) + 2
+    half_x = (win_w - 1) * 0.5
+    half_y = (win_h - 1) * 0.5
+    bands = _level_row_bands(h0, cfg, row_band)
+    h_levels, _h = [], h0
+    for _ in range(cfg.max_level + 1):
+        h_levels.append(_h)
+        _h = -(-_h // 2)
+
+    with record_function("tracker.fold"):
+        next_folded = fold_tracking_levels(next_imgs, cfg, row_band=row_band)
+    if len(prev_folded) != cfg.max_level + 1 \
+            or prev_folded[0].shape != next_folded[0].shape:
+        raise ValueError("prev_folded was built for another batch geometry")
+
+    frame_idx = torch.arange(b, device=dev).repeat_interleave(n)
+    flat_pts = pts.reshape(nn, 2).to(torch.float32)
+    flat_valid = valid.reshape(nn)
+    status = flat_valid
+    next_pt = flat_pts / float(2 ** cfg.max_level)
+    err = None
+    area2 = torch.tensor(2.0 * win_w * win_h, dtype=torch.float32,
+                         device=dev)
+
+    for level in range(cfg.max_level, -1, -1):
+        prev_f = prev_folded[level]
+        next_f = next_folded[level]
+        h = prev_f.shape[0] // b - 2 * (pad + 1)
+        w = prev_f.shape[1] - 2 * pad
+        band = bands[level]
+        r0 = 0 if band is None else band[0]
+        h_true = h_levels[level]
+        if h != (h_true if band is None else band[1] - band[0]):
+            raise ValueError("prev_folded was built with a different "
+                             f"row_band (level {level}, {h} rows)")
+        fph = h + 2 * pad
+        fpw = w + 2 * pad
+        base_y = frame_idx * (fph + 2) + 1
+        sw_h = min(_SW_ROWS, fph)
+        sw_w = min(_SW_COLS, fpw)
+
+        prev_pt = flat_pts / float(2 ** level)
+        if level != cfg.max_level:
+            next_pt = next_pt * 2.0
+
+        # --- prev/ix/iy window and the next superwindow ------------------
+        ipx, ipy, fx, fy = _bilinear_weights(prev_pt, half_x, half_y)
+        prev_inside = ((ipx >= -win_w) & (ipx < w) & (ipy >= -win_h)
+                       & (ipy < h_true))
+        cx = (ipx.to(torch.int64) + pad).clamp(0, fpw - win_w - 1)
+        cy = (ipy.to(torch.int64) - r0 + pad).clamp(0, fph - win_h - 1) \
+            + base_y
+        sy = (torch.floor(next_pt[:, 1] - half_y).to(torch.int64) - r0 + pad
+              - (sw_h - win_h - 1) // 2).clamp(0, fph - sw_h)
+        sx = (torch.floor(next_pt[:, 0] - half_x).to(torch.int64) + pad
+              - (sw_w - win_w - 1) // 2).clamp(0, fpw - sw_w)
+        with record_function("tracker.gather"):
+            raw, sw = gather_windows(prev_f, next_f, cy, cx, sy + base_y, sx,
+                                     win_h, win_w, sw_h, sw_w)
+        with record_function("tracker.refine"):
+            next_pt, good, kept, lvl_err = _refine_level(
+                raw, sw, fx, fy, next_pt, prev_inside, sy, sx,
+                (r0, pad, w, h_true), cfg, area2, with_err=level == 0)
+        if level == 0:
+            status = status & good & kept
+            err = lvl_err
+
+    new_pts = torch.where(flat_valid[:, None], next_pt, flat_pts)
+    return (new_pts.reshape(b, n, 2), (status & flat_valid).reshape(b, n),
+            err.reshape(b, n), next_folded)

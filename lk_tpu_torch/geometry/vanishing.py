@@ -1,0 +1,222 @@
+"""The vanishing-point state machine over a batch of streams: counterpart of
+``lk_tpu.geometry.vanishing`` (``VPState``, ``init_vp_state``,
+``process_frame_pairs``, ``vp_show_step``), with its quirks:
+
+* the VP can update once per accepted cross point, each update reading the
+  ring of the last ``vp_ref_num`` CPs including the one just appended, so
+  the pairs of a frame are processed in sequence;
+* robust update: component-wise mean +- std * ``max_cp_std`` clip of the
+  CP-to-VP differences, mean of the kept ones scaled by ``vp_update_rate``;
+* init: once ``vp_ref_num`` CPs accumulate, VP = their mean; with
+  ``vp_init_aliasing`` the ring entry appended last reads as the current VP
+  until it leaves the window (LK_Final.py:617-624);
+* hide/reset after ``hide_vp_thold`` frames without an update;
+* cross points that compute to nan are rejected.
+
+Every leaf of ``VPState`` has a leading stream axis (B, ...).  The pair
+scan is sequential per stream: ``process_frame_pairs`` walks the candidate
+pairs of all B streams together, as many steps as the stream with the most
+candidates has (one host read per frame), masking the streams that are
+done; a step past a stream's last candidate changes nothing of it.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from lk_tpu_torch.config import PipelineConfig
+from lk_tpu_torch.geometry.crosspoints import cross_point_pairs, pair_indices
+from lk_tpu_torch.geometry.flowlines import FlowLineStats
+
+
+class VPState(NamedTuple):
+    vp_xy: torch.Tensor        # (B, 2) f32
+    vp_init: torch.Tensor      # (B,) bool
+    vp_moved: torch.Tensor     # (B,) bool
+    ring_xy: torch.Tensor      # (B, vp_ref_num, 2) recent-CP ring
+    ring_total: torch.Tensor   # (B,) int64 — appends since last clear
+    alias_pos: torch.Tensor    # (B,) int64 — append index aliased, -1 none
+    vp_ult: torch.Tensor       # (B,) int64 — frames since last VP update
+    hist_xy: torch.Tensor      # (B, vp_ref, 2) VP-history ring
+    hist_total: torch.Tensor   # (B,) int64
+
+
+class FrameGeomOut(NamedTuple):
+    """Per-frame geometry outputs (fixed shapes, masked), (B, ...)."""
+    update_rows: torch.Tensor   # (B, P, 2) VP after each in-frame update
+    update_mask: torch.Tensor   # (B, P)
+    cp_xy: torch.Tensor         # (B, P, 2) accepted cross points
+    cp_mask: torch.Tensor       # (B, P)
+    show_row: torch.Tensor      # (B, 2)
+    show_mask: torch.Tensor     # (B,)
+    vp_hidden: torch.Tensor     # (B,)
+
+
+def init_vp_state(cfg: PipelineConfig, batch: int,
+                  device="cuda") -> VPState:
+    """Fresh state of ``batch`` streams on ``device``."""
+    f32, i64 = torch.float32, torch.int64
+
+    def z(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return VPState(
+        vp_xy=z((batch, 2), f32), vp_init=z((batch,), torch.bool),
+        vp_moved=z((batch,), torch.bool),
+        ring_xy=z((batch, cfg.vp_ref_num, 2), f32),
+        ring_total=z((batch,), i64),
+        alias_pos=torch.full((batch,), -1, dtype=i64, device=device),
+        vp_ult=z((batch,), i64), hist_xy=z((batch, cfg.vp_ref, 2), f32),
+        hist_total=z((batch,), i64),
+    )
+
+
+def _ring_slots(total: torch.Tensor, capacity: int):
+    """Per-slot absolute append index (largest a < total with a%cap == k)
+    of (B,) totals -> (B, capacity)."""
+    k = torch.arange(capacity, device=total.device)
+    t = total[:, None]
+    abs_idx = t - 1 - torch.remainder(t - 1 - k, capacity)
+    return abs_idx, (abs_idx >= 0) & (t > 0)
+
+
+def _set_slot(ring: torch.Tensor, slot: torch.Tensor, value: torch.Tensor,
+              do: torch.Tensor) -> torch.Tensor:
+    """ring[b, slot[b]] = value[b] where do[b]."""
+    hit = (torch.arange(ring.shape[1], device=ring.device)[None, :]
+           == slot[:, None]) & do[:, None]
+    return torch.where(hit[..., None], value[:, None, :], ring)
+
+
+def frame_candidates(lines: FlowLineStats, accepted: torch.Tensor,
+                     cfg: PipelineConfig, frame_size: Tuple[int, int]):
+    """The frame's cross points in scan order: (cps (B, P, 2), cand
+    (B, P), n_cand (B,)) with the candidate pairs moved stably to the
+    front, as ``lk_tpu``'s argsort compaction."""
+    width, _ = frame_size
+    ii, jj = pair_indices(lines.start.shape[-2], lines.start.device)
+    cps = cross_point_pairs(lines.start, lines.stop)
+    ang_d = (lines.angle[:, ii] - lines.angle[:, jj]).abs()
+    pair_ok = (accepted[:, ii] & accepted[:, jj] & (ang_d >= cfg.min_ang_dif)
+               & (ang_d <= 360.0 - cfg.min_ang_dif))
+    if cfg.cp_min_start_sep_frac > 0:
+        sep = (lines.start[:, ii, 0] - lines.start[:, jj, 0]).abs()
+        pair_ok = pair_ok & (sep >= width * cfg.cp_min_start_sep_frac)
+    not_nan = ~(torch.isnan(cps[..., 0]) | torch.isnan(cps[..., 1]))
+    above = ((cps[..., 1] <= lines.start[:, ii, 1])
+             & (cps[..., 1] <= lines.start[:, jj, 1]))
+    cand = pair_ok & not_nan & above
+    order = torch.argsort((~cand).to(torch.uint8), dim=1, stable=True)
+    cps_c = cps.gather(1, order[..., None].expand_as(cps))
+    return cps_c, cand.gather(1, order), cand.sum(dim=1)
+
+
+def process_frame_pairs(state: VPState, cps_c: torch.Tensor,
+                        cand_c: torch.Tensor, n_steps: int,
+                        cfg: PipelineConfig, frame_size: Tuple[int, int]
+                        ) -> Tuple[VPState, FrameGeomOut]:
+    """The cross-point / VP-update scan of one frame for B streams.
+
+    ``cps_c``/``cand_c`` come from ``frame_candidates``; ``n_steps`` is
+    the largest candidate count among the streams (the caller reads it
+    from the device).  Rows past a stream's candidates stay zero and
+    unmasked, as the JAX while loop leaves them."""
+    width, height = frame_size
+    b, p = cand_c.shape
+    r_cap = cfg.vp_ref_num
+    dev = cps_c.device
+    bound = torch.tensor([width * cfg.cp_thold, height * cfg.cp_thold],
+                         dtype=torch.float32, device=dev)
+    rate = cfg.vp_update_rate
+    s_clip = cfg.max_cp_std
+    r_cap_f = torch.tensor(float(r_cap), dtype=torch.float32, device=dev)
+    rows = torch.zeros((b, p, 2), dtype=torch.float32, device=dev)
+    cp_out = torch.zeros((b, p, 2), dtype=torch.float32, device=dev)
+    row_mask = torch.zeros((b, p), dtype=torch.bool, device=dev)
+    cp_mask = torch.zeros((b, p), dtype=torch.bool, device=dev)
+    st = state
+    for i in range(n_steps):
+        cp, ok = cps_c[:, i], cand_c[:, i]
+        close = ((st.vp_xy - cp).abs() < bound).all(dim=-1)
+        accept = ok & (~st.vp_init | close)
+
+        slot = torch.remainder(st.ring_total, r_cap)
+        ring_xy = _set_slot(st.ring_xy, slot, cp, accept)
+        ring_total = st.ring_total + accept.to(torch.int64)
+
+        # --- update branch (VP initialized) ------------------------------
+        abs_idx, slot_valid = _ring_slots(ring_total, r_cap)
+        aliased = (abs_idx == st.alias_pos[:, None]) \
+            & (st.alias_pos[:, None] >= 0)
+        vals = torch.where(aliased[..., None], st.vp_xy[:, None, :], ring_xy)
+        m = slot_valid.sum(dim=1).clamp(min=1).to(torch.float32)[:, None]
+        difs = vals - st.vp_xy[:, None, :]
+        w_mask = slot_valid[..., None].to(torch.float32)
+        mean = (difs * w_mask).sum(dim=1) / m
+        var = ((difs - mean[:, None, :]) ** 2 * w_mask).sum(dim=1) / m
+        std = torch.sqrt(var)
+        keep = (slot_valid
+                & (difs <= (mean + std * s_clip)[:, None, :]).all(dim=-1)
+                & (difs >= (mean - std * s_clip)[:, None, :]).all(dim=-1))
+        c = keep.sum(dim=1)
+        move = (difs * keep[..., None]).sum(dim=1) \
+            / c.clamp(min=1)[:, None].to(torch.float32)
+        do_update = accept & st.vp_init & (c != 0)
+        new_vp_upd = st.vp_xy + move * rate
+
+        # --- init branch ---------------------------------------------------
+        do_init = accept & ~st.vp_init & (ring_total >= r_cap)
+        init_vp = ring_xy.sum(dim=1) / r_cap_f
+
+        vp_xy = torch.where(do_update[:, None], new_vp_upd,
+                            torch.where(do_init[:, None], init_vp, st.vp_xy))
+        alias_new = ring_total - 1 if cfg.vp_init_aliasing \
+            else torch.full_like(ring_total, -1)
+        hist_slot = torch.remainder(st.hist_total, cfg.vp_ref)
+        st = VPState(
+            vp_xy=vp_xy,
+            vp_init=st.vp_init | do_init,
+            vp_moved=st.vp_moved | do_update,
+            ring_xy=ring_xy,
+            ring_total=ring_total,
+            alias_pos=torch.where(do_init, alias_new, st.alias_pos),
+            vp_ult=torch.where(do_update | do_init, 0, st.vp_ult),
+            hist_xy=_set_slot(st.hist_xy, hist_slot, vp_xy, do_update),
+            hist_total=st.hist_total + do_update.to(torch.int64),
+        )
+        # ok[b] <=> i < n_cand[b] (candidates sorted first)
+        rows[:, i] = torch.where(ok[:, None], vp_xy, 0.0)
+        row_mask[:, i] = do_update
+        cp_out[:, i] = torch.where(ok[:, None], cp, 0.0)
+        cp_mask[:, i] = accept
+    out = FrameGeomOut(
+        update_rows=rows, update_mask=row_mask, cp_xy=cp_out, cp_mask=cp_mask,
+        show_row=torch.zeros((b, 2), dtype=torch.float32, device=dev),
+        show_mask=torch.zeros((b,), dtype=torch.bool, device=dev),
+        vp_hidden=torch.zeros((b,), dtype=torch.bool, device=dev),
+    )
+    return st, out
+
+
+def vp_show_step(state: VPState, out: FrameGeomOut, cfg: PipelineConfig
+                 ) -> Tuple[VPState, FrameGeomOut]:
+    """The per-frame show/hide block (reference LK_Final.py:627-649); runs
+    after ``process_frame_pairs`` and increments ``vp_ult``."""
+    hide = state.vp_init & (state.vp_ult > cfg.hide_vp_thold)
+    show = state.vp_init & ~hide
+    hist_slot = torch.remainder(state.hist_total, cfg.vp_ref)
+    new_state = VPState(
+        vp_xy=torch.where(hide[:, None], 0.0, state.vp_xy),
+        vp_init=state.vp_init & ~hide,
+        vp_moved=state.vp_moved & ~hide,
+        ring_xy=state.ring_xy,
+        ring_total=torch.where(hide, 0, state.ring_total),
+        alias_pos=torch.where(hide, -1, state.alias_pos),
+        vp_ult=state.vp_ult + 1,
+        hist_xy=_set_slot(state.hist_xy, hist_slot, state.vp_xy, show),
+        hist_total=state.hist_total + show.to(torch.int64),
+    )
+    return new_state, out._replace(show_row=state.vp_xy, show_mask=show,
+                                   vp_hidden=hide)

@@ -1,4 +1,11 @@
-"""Gaussian pyramid step: counterpart of ``lk_tpu.ops.blur.pyr_down``.
+"""Gaussian smoothing and the pyramid step: counterpart of
+``lk_tpu.ops.blur`` (``_sep_filter_axis``, ``sep_filter2d``,
+``gaussian_blur3``, ``pyr_down``).
+
+Small separable stencils are f32 shifted adds over a REFLECT_101-padded
+axis, the taps summed in order: ``((x[-1]*t0 + x[0]*t1) + x[1]*t2)``.
+``gaussian_blur3`` is the [1,2,1]/4 kernel, horizontal pass first, so each
+output is ``(0.25l + 0.5c) + 0.25r`` per axis (cv.GaussianBlur 3x3 sigma 0).
 
 cv.pyrDown semantics: the 5-tap [1,4,6,4,1]/16 filter on both axes with
 BORDER_REFLECT_101 borders, even-pixel decimation and output size ceil(n/2)
@@ -18,7 +25,45 @@ import functools
 
 import torch
 
+_GAUSS3 = (0.25, 0.5, 0.25)
 _GAUSS5 = (1 / 16, 4 / 16, 6 / 16, 4 / 16, 1 / 16)
+
+
+@functools.lru_cache(maxsize=64)
+def reflect101_index(n: int, before: int, after: int,
+                     device: torch.device) -> torch.Tensor:
+    """Source indices of an axis of length n padded by ``before``/``after``
+    with BORDER_REFLECT_101 (cba|abcd|cba), as ``jnp.pad(mode="reflect")``."""
+    if n < 2 or before >= n or after >= n:
+        raise ValueError(f"reflect pad ({before}, {after}) of length {n}")
+    i = torch.arange(-before, n + after, device=device)
+    i = torch.where(i < 0, -i, i)
+    return torch.where(i >= n, 2 * n - 2 - i, i)
+
+
+def _sep_filter_axis(x: torch.Tensor, taps, axis: int) -> torch.Tensor:
+    """Correlate along ``axis`` with a small symmetric kernel, REFLECT_101
+    border, taps summed in order (``lk_tpu.ops.blur._sep_filter_axis``)."""
+    x = x.to(torch.float32)
+    k = len(taps)
+    pad = k // 2
+    n = x.shape[axis]
+    xp = x.index_select(axis, reflect101_index(n, pad, pad, x.device))
+    out = None
+    for i, t in enumerate(taps):
+        term = xp.narrow(axis, i, n) * t
+        out = term if out is None else out + term
+    return out
+
+
+def sep_filter2d(x: torch.Tensor, taps) -> torch.Tensor:
+    """Separable 2-D filter over the trailing (H, W) axes, W first."""
+    return _sep_filter_axis(_sep_filter_axis(x, taps, -1), taps, -2)
+
+
+def gaussian_blur3(img: torch.Tensor) -> torch.Tensor:
+    """3x3 sigma-0 Gaussian blur, float path (cv2 float32 semantics)."""
+    return sep_filter2d(img, _GAUSS3)
 
 
 @functools.lru_cache(maxsize=64)

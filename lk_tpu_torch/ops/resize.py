@@ -1,9 +1,38 @@
-"""2x flow upsample between pyramid levels: counterpart of
-``lk_tpu.ops.resize.upsample2_linear``."""
+"""Resampling: counterpart of ``lk_tpu.ops.resize`` (``area_weights``,
+``resize_area``, ``upsample2_linear``)."""
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
+
+
+@functools.lru_cache(maxsize=64)
+def area_weights(n_src: int, n_dst: int) -> np.ndarray:
+    """(n_dst, n_src) INTER_AREA averaging weights (rows sum to 1)."""
+    scale = n_src / n_dst
+    w = np.zeros((n_dst, n_src), dtype=np.float32)
+    for d in range(n_dst):
+        a, b = d * scale, (d + 1) * scale
+        s0, s1 = int(np.floor(a)), min(int(np.ceil(b)), n_src)
+        for s in range(s0, s1):
+            w[d, s] = (min(s + 1, b) - max(s, a)) / scale
+    return w
+
+
+def resize_area(img: torch.Tensor, dst_h: int, dst_w: int) -> torch.Tensor:
+    """INTER_AREA resize of the trailing (H, W) axes as two f32 matmuls,
+    ``Wy @ img @ Wx^T`` (columns first, as ``lk_tpu``).  The caller keeps
+    TF32 off (``torch.backends.cuda.matmul.allow_tf32``, False by
+    default): resize feeds sub-pixel tracking."""
+    h, w = img.shape[-2], img.shape[-1]
+    dev = img.device
+    wy = torch.from_numpy(area_weights(h, dst_h)).to(dev)
+    wx = torch.from_numpy(area_weights(w, dst_w)).to(dev)
+    y = torch.matmul(img.to(torch.float32), wx.T)
+    return torch.matmul(wy, y)
 
 
 def _up_axis(x: torch.Tensor, dst: int, dim: int) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""The CUDA kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 Skips without a CUDA device.  The machine with the card has no JAX and no
 OpenCV, so this file imports neither and needs none of tests/conftest.py;
@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from lk_tpu_torch.flow import lk_kernels as lk
+from lk_tpu_torch.flow import sparse
+from lk_tpu_torch.ops import finish
 
 THR = 1e-4
 
@@ -93,3 +95,87 @@ def test_kernel_rejects_bad_input(cuda_device):
         lk.fused_lk_level(t[:1], t[1:], torch.zeros((1, 2, 128, 64),
                                                     device=cuda_device),
                           tile_h=128, tile_w=64, max_disp=4, local=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+@pytest.mark.parametrize("shape", [(3, 37, 53), (2, 64, 128), (1, 483, 860),
+                                   (2, 2, 2)])
+def test_finish_matches_plain(cuda_device, shape, dtype):
+    """Kernel A: bit-equal to the plain chain (no FMA contraction in the
+    kernel), with and without the tone curve; one launch per call."""
+    rng = np.random.default_rng(2)
+    x = rng.integers(0, 256, shape).astype(dtype)
+    x = torch.from_numpy(x).to(cuda_device)
+    for contrast in (False, True):
+        finish.reset_counters()
+        got = finish.fused_finish(x, contrast)
+        assert (finish.kernel_launches, finish.plain_calls) == (1, 0)
+        want = finish.fused_finish_reference(x, contrast)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("win,sw", [((15, 15), (32, 48)), ((7, 9), (20, 30))])
+def test_window_gather_matches_plain(cuda_device, win, sw):
+    """Kernel B: bit-equal to the full-frame Scharr plus crops, corners in
+    and out of range (clamped as dynamic_slice clamps them)."""
+    rng = np.random.default_rng(3)
+    fh, fw = 700, 300
+    pv = torch.from_numpy(rng.random((fh, fw), dtype=np.float32) * 255)
+    nx = torch.from_numpy(rng.random((fh, fw), dtype=np.float32) * 255)
+    pv, nx = pv.to(cuda_device), nx.to(cuda_device)
+    n = 333
+    c = [torch.from_numpy(rng.integers(-20, lim + 20, n)).to(cuda_device)
+         for lim in (fh, fw, fh, fw)]
+    sparse.reset_counters()
+    raw, swin = sparse.gather_windows(pv, nx, *c, win[1], win[0], *sw)
+    assert (sparse.kernel_launches, sparse.plain_calls) == (1, 0)
+    raw_p, sw_p = sparse.gather_windows_reference(pv, nx, *c, win[1], win[0],
+                                                  *sw)
+    torch.cuda.synchronize()
+    assert torch.equal(raw, raw_p) and torch.equal(swin, sw_p)
+
+
+@pytest.mark.cuda
+def test_serving_kernels_match_plain_path(cuda_device):
+    """A small batched serving run through both kernels equals the same run
+    through their plain versions; kernel A launches once per feed, kernel
+    B three times (once per level) per processed frame."""
+    import dataclasses
+
+    from lk_tpu_torch.models import PRESETS
+    from lk_tpu_torch.pipeline import runner
+
+    cfg = dataclasses.replace(PRESETS["final"], width=320, out_cap=48)
+    rng = np.random.default_rng(4)
+    from scipy.ndimage import gaussian_filter
+
+    base = gaussian_filter(rng.random((200, 340), dtype=np.float32) * 255, 2)
+    frames = np.stack([np.stack([base[t:t + 180, b + t:b + t + 320]
+                                 for b in range(2)]) for t in range(9)])
+    st = torch.from_numpy(frames.astype(np.uint8)).to(cuda_device)
+
+    def run():
+        ms = runner.MultiStreamPipeline(cfg, src_size=(320, 180),
+                                        n_streams=2, chunk=8)
+        ms.feed_staged(st, 0, 9)
+        ms.drain()
+        return ms
+
+    finish.reset_counters()
+    sparse.reset_counters()
+    kern = run()
+    assert (finish.kernel_launches, finish.plain_calls) == (2, 0)
+    assert (sparse.kernel_launches, sparse.plain_calls) == (3 * 8, 0)
+    old = finish.fused_finish, sparse.gather_windows
+    finish.fused_finish = finish.fused_finish_reference
+    sparse.gather_windows = sparse.gather_windows_reference
+    try:
+        plain = run()
+    finally:
+        finish.fused_finish, sparse.gather_windows = old
+    for p, q in zip(kern.pipes, plain.pipes):
+        assert p.csv_rows == q.csv_rows
+        assert p.cross_points == q.cross_points

@@ -18,11 +18,14 @@ import lk_tpu.flow.pallas_kernels as pk
 from lk_tpu.config import DenseLKConfig, LKConfig
 from lk_tpu.flow import dense as jd
 from lk_tpu_torch.flow import dense as td
-from torch_parity import AFFINE, affine_clip, f32_jnp, interpret_pallas
+from torch_parity import (AFFINE, affine_clip, f32_jnp, interpret_pallas,
+                          port_cfg)
 
 CFG = LKConfig(max_level=1)
 DCFG = DenseLKConfig(use_pallas_fused=True, iter_schedule=(1, 4),
                      pyramid_levels=2, video_chunk=3, scharr_mxu=False)
+# the port's own copies of the same configs
+TCFG, TDCFG = port_cfg(CFG), port_cfg(DCFG)
 
 
 @pytest.fixture(autouse=True)
@@ -63,7 +66,7 @@ def clip():
 
 @pytest.fixture(scope="module")
 def port_chunked(clip):
-    return td.dense_pyramidal_lk_video(torch.from_numpy(clip), CFG, DCFG)
+    return td.dense_pyramidal_lk_video(torch.from_numpy(clip), TCFG, TDCFG)
 
 
 def test_video_matches_lk_tpu(clip, port_chunked):
@@ -88,7 +91,8 @@ def test_video_matches_lk_tpu_f32(clip, port_chunked, monkeypatch):
 def test_chunked_equals_per_frame(clip, port_chunked):
     """The port's chunked chain equals its per-frame chain bit for bit."""
     per_frame = td.dense_pyramidal_lk_video(
-        torch.from_numpy(clip), CFG, dataclasses.replace(DCFG, video_chunk=0))
+        torch.from_numpy(clip), TCFG,
+        dataclasses.replace(TDCFG, video_chunk=0))
     for a, b in zip(port_chunked, per_frame):
         assert torch.equal(a, b)
 
@@ -103,7 +107,8 @@ def test_warm_start_matches_lk_tpu(clip):
     warm_top_iters there) on 5 frames."""
     dcfg = dataclasses.replace(DCFG, video_warm_start=True, video_chunk=0)
     jr = jd.dense_pyramidal_lk_video(jnp.asarray(clip[:5]), CFG, dcfg)
-    tr = td.dense_pyramidal_lk_video(torch.from_numpy(clip[:5]), CFG, dcfg)
+    tr = td.dense_pyramidal_lk_video(torch.from_numpy(clip[:5]), TCFG,
+                                     port_cfg(dcfg))
     _assert_results_close(jr, tr, flow_max=0.05, flow_mean=5e-3,
                           eig_rel=5e-3, flips=1e-3)
     assert _gt_epe(tr.flow.numpy()) < 0.1
@@ -117,18 +122,18 @@ def test_per_pair_matches_lk_tpu(clip):
     jr = jd.dense_pyramidal_lk(jnp.asarray(prv), jnp.asarray(nxt), CFG,
                                dense_cfg=DCFG)
     tr = td.dense_pyramidal_lk(torch.from_numpy(prv.copy()),
-                               torch.from_numpy(nxt.copy()), CFG,
-                               dense_cfg=DCFG)
+                               torch.from_numpy(nxt.copy()), TCFG,
+                               dense_cfg=TDCFG)
     _assert_results_close(jr, tr, flow_max=0.05, flow_mean=5e-3,
                           eig_rel=5e-3, flips=1e-3)
 
 
 def test_multistream_is_per_stream(clip):
     frames = torch.from_numpy(np.stack([clip[:3], clip[3:6]]))
-    ms = td.dense_pyramidal_lk_multistream(frames, CFG, DCFG)
+    ms = td.dense_pyramidal_lk_multistream(frames, TCFG, TDCFG)
     assert ms.flow.shape == (2, 2, 128, 1024, 2)
     for s in range(2):
-        one = td.dense_pyramidal_lk_video(frames[s], CFG, DCFG)
+        one = td.dense_pyramidal_lk_video(frames[s], TCFG, TDCFG)
         for a, b in zip(ms, one):
             assert torch.equal(a[s], b)
 
@@ -137,14 +142,14 @@ def test_levels_from_numpy_round_trip(clip):
     """lk_tpu's carried per-frame state (unified prepadded levels) strips to
     the port's unpadded levels, which its chain then runs on."""
     hw = clip.shape[1:]
-    ecfg = td._effective_cfg(CFG, DCFG, hw)
-    base = td.pyramid_base_geometry(*hw, ecfg, DCFG)
+    ecfg = jd._effective_cfg(CFG, DCFG, hw)
+    base = jd.pyramid_base_geometry(*hw, ecfg, DCFG)
     plan_j = jd._video_level_plan(ecfg, DCFG, base, true_hw=hw)
-    plan_t = td._video_level_plan(ecfg, DCFG, base, true_hw=hw)
+    plan_t = td._video_level_plan(port_cfg(ecfg), TDCFG, base, true_hw=hw)
     padded = [np.asarray(x) for x in jd.build_frame_levels_prepadded(
         jnp.asarray(clip[0]), CFG, DCFG, plan_j)]
-    ours = td.levels_from_numpy(padded, plan_t)
-    ref = td.build_frame_levels(torch.from_numpy(clip[0]), CFG, DCFG)
+    ours = td.levels_from_numpy(padded, plan_t, device="cpu")
+    ref = td.build_frame_levels(torch.from_numpy(clip[0]), TCFG, TDCFG)
     for a, b in zip(ours, ref):
         assert a.shape == b.shape
         # lk_tpu's fast pyr_down is a matmul: f32 summation order only

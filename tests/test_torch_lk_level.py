@@ -57,7 +57,7 @@ def _unified(frames, th, tw, disp, local):
     padded = np.pad(frames, ((0, 0), (pt, pb), (pl_, pr)), mode="edge")
     h, w = frames.shape[1:]
     p = td._LevelPlan(h, w, th, tw, (th, tw) == (h, w), 1, local, disp)
-    (ours,) = td.levels_from_numpy([padded], (p,))
+    (ours,) = td.levels_from_numpy([padded], (p,), device="cpu")
     assert torch.equal(ours, torch.from_numpy(frames))
     return padded, ours
 

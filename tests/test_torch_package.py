@@ -1,6 +1,8 @@
-"""lk_tpu_torch as a package: no JAX, unported branches refuse, and
-chip_smoke.py refuses to run without a GPU."""
+"""lk_tpu_torch as a package: nothing of JAX, lk_tpu or OpenCV, its own
+configs equal to lk_tpu's, unported branches refuse, and chip_smoke.py
+refuses to run without a GPU."""
 
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -9,8 +11,12 @@ import sys
 import pytest
 import torch
 
-from lk_tpu.config import DenseLKConfig, LKConfig
+import lk_tpu.config as jc
+import lk_tpu_torch.config as tc
+from lk_tpu.models import PRESETS as J_PRESETS
+from lk_tpu_torch.config import DenseLKConfig, LKConfig
 from lk_tpu_torch.flow import dense as td
+from lk_tpu_torch.models import PRESETS
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -21,15 +27,68 @@ def _run(args, cwd, timeout=120):
                           capture_output=True, text=True, timeout=timeout)
 
 
+PORT_MODULES = (
+    "lk_tpu_torch", "lk_tpu_torch._build", "lk_tpu_torch.config",
+    "lk_tpu_torch.models", "lk_tpu_torch.ops", "lk_tpu_torch.ops.blur",
+    "lk_tpu_torch.ops.boxfilter", "lk_tpu_torch.ops.color",
+    "lk_tpu_torch.ops.finish", "lk_tpu_torch.ops.gradients",
+    "lk_tpu_torch.ops.rasterize", "lk_tpu_torch.ops.resize",
+    "lk_tpu_torch.ops.tone", "lk_tpu_torch.features.shi_tomasi",
+    "lk_tpu_torch.flow.dense", "lk_tpu_torch.flow.lk_kernels",
+    "lk_tpu_torch.flow.sparse", "lk_tpu_torch.geometry.classify",
+    "lk_tpu_torch.geometry.crosspoints", "lk_tpu_torch.geometry.flowlines",
+    "lk_tpu_torch.geometry.vanishing", "lk_tpu_torch.pipeline.runner",
+    "lk_tpu_torch.pipeline.state", "lk_tpu_torch.pipeline.step")
+
+
 def test_import_pulls_no_jax():
-    code = ("import sys, lk_tpu_torch, lk_tpu_torch._build, "
-            "lk_tpu_torch.flow.dense, lk_tpu_torch.flow.lk_kernels, "
-            "lk_tpu_torch.ops; "
-            "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith(('jax.', 'lk_tpu.flow', 'lk_tpu.ops', 'cv2'))]; "
+    """In a fresh process, importing every module of the port loads no
+    jax, no cv2 and no module of lk_tpu (not even its config)."""
+    code = ("import importlib, sys\n"
+            f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'cv2', 'lk_tpu') "
+            "or m.startswith(('jax.', 'cv2.', 'lk_tpu.'))]\n"
             "print(bad); sys.exit(1 if bad else 0)")
     proc = _run(["-c", code], REPO)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _fields(cls):
+    return [(f.name, f.default if f.default is not dataclasses.MISSING
+             else f.default_factory()) for f in dataclasses.fields(cls)]
+
+
+@pytest.mark.parametrize("name", ["LKConfig", "DenseLKConfig",
+                                  "FeatureConfig", "ROIConfig",
+                                  "PipelineConfig"])
+def test_config_parity(name):
+    """The port's copy of each config class has lk_tpu's fields, defaults
+    and derived values, field for field."""
+    j, t = getattr(jc, name), getattr(tc, name)
+    jf, tf = _fields(j), _fields(t)
+    assert [n for n, _ in tf] == [n for n, _ in jf]
+    for (n, a), (_, b) in zip(tf, jf):
+        if dataclasses.is_dataclass(a):
+            assert dataclasses.asdict(a) == dataclasses.asdict(b), n
+        else:
+            assert a == b, n
+    jd, td_ = j(), t()
+    for meth, args in [("level_iters", range(6)), ("level_local", range(6)),
+                       ("level_disp", range(6)),
+                       ("derived_height", [(1080, 1920), (720, 1280),
+                                           (242, 430)])]:
+        if hasattr(j, meth):
+            for a in args:
+                a = a if isinstance(a, tuple) else (a,)
+                assert getattr(td_, meth)(*a) == getattr(jd, meth)(*a)
+    if name == "LKConfig":
+        assert td_.half_win == jd.half_win
+
+
+def test_presets_parity():
+    """lk_tpu_torch.models.PRESETS holds lk_tpu's three VP presets."""
+    assert {k: dataclasses.asdict(v) for k, v in PRESETS.items()} == {
+        k: dataclasses.asdict(v) for k, v in J_PRESETS.items()}
 
 
 def _pair(h=64, w=128):
@@ -39,7 +98,7 @@ def _pair(h=64, w=128):
 
 @pytest.mark.parametrize("case", [
     "xla_level", "precomputed_a", "pallas_pyramid_per_pair",
-    "padded_build", "batched"])
+    "padded_build", "batched", "single_stream_step"])
 def test_unported_branch_raises(case):
     prv, nxt = _pair()
     cfg = LKConfig(max_level=1)
@@ -56,8 +115,16 @@ def test_unported_branch_raises(case):
             td.dense_pyramidal_lk_video(torch.stack([prv, nxt]), cfg,
                                         DenseLKConfig(use_pallas_fused=True,
                                                       padded_build=True))
-        else:
+        elif case == "batched":
             td.dense_pyramidal_lk_batched(prv[None], nxt[None], cfg)
+        else:
+            from lk_tpu_torch.ops.rasterize import build_roi_masks
+            from lk_tpu_torch.pipeline.step import make_step
+
+            pcfg = tc.PipelineConfig(width=128)
+            full, subs = build_roi_masks(128, 64, pcfg.roi)
+            step, _, _ = make_step(pcfg, (128, 64), full, subs, device="cpu")
+            step(None, prv)
 
 
 @pytest.mark.skipif(torch.cuda.is_available(),

@@ -13,6 +13,7 @@ from lk_tpu.flow import dense as jd
 from lk_tpu.flow import pallas_kernels as pk
 from lk_tpu_torch.flow import dense as td
 from lk_tpu_torch.flow import lk_kernels as lk
+from torch_parity import port_cfg
 
 SHAPES = [(1080, 1920), (720, 1280), (544, 960), (272, 480), (128, 1024),
           (64, 384),
@@ -43,13 +44,14 @@ CONFIGS = {
 @pytest.mark.parametrize("hw", SHAPES)
 def test_plan_matches_lk_tpu(hw, name):
     cfg, dcfg = CONFIGS[name]
+    tcfg, tdcfg = port_cfg(cfg), port_cfg(dcfg)
     h, w = hw
-    assert td._effective_cfg(cfg, dcfg, hw) == jd._effective_cfg(cfg, dcfg,
-                                                                 hw)
-    base_t = td.pyramid_base_geometry(h, w, cfg, dcfg)
+    assert (dataclasses.asdict(td._effective_cfg(tcfg, tdcfg, hw))
+            == dataclasses.asdict(jd._effective_cfg(cfg, dcfg, hw)))
+    base_t = td.pyramid_base_geometry(h, w, tcfg, tdcfg)
     assert base_t == jd.pyramid_base_geometry(h, w, cfg, dcfg)
-    ecfg = td._effective_cfg(cfg, dcfg, hw)
-    plan_t = td._video_level_plan(ecfg, dcfg, base_t, true_hw=hw)
+    ecfg = jd._effective_cfg(cfg, dcfg, hw)
+    plan_t = td._video_level_plan(port_cfg(ecfg), tdcfg, base_t, true_hw=hw)
     plan_j = jd._video_level_plan(ecfg, dcfg, base_t, true_hw=hw)
     assert (plan_t is None) == (plan_j is None)
     if plan_t is not None:
@@ -67,7 +69,7 @@ def test_plan_matches_lk_tpu(hw, name):
             fused_resident_max_h=(dcfg.fused_resident_max_h
                                   if level == ecfg.max_level else 0))
         for c in (dcfg, lcfg):
-            assert (td.pallas_level_geometry(hs, ws, c)
+            assert (td.pallas_level_geometry(hs, ws, port_cfg(c))
                     == jd.pallas_level_geometry(hs, ws, c))
         hs, ws = -(-hs // 2), -(-ws // 2)
 
@@ -75,7 +77,7 @@ def test_plan_matches_lk_tpu(hw, name):
 def test_production_plan_at_1080p():
     """The plan the main path runs: base 1088x2048, L0..L2 one iteration on
     272x512 tiles, the 136x256 top resident with 6 iterations."""
-    cfg, dcfg = CONFIGS["production"]
+    cfg, dcfg = (port_cfg(c) for c in CONFIGS["production"])
     hw = (1080, 1920)
     base = td.pyramid_base_geometry(*hw, cfg, dcfg)
     assert base == (1088, 2048)

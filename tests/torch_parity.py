@@ -3,9 +3,15 @@
 import types
 
 import numpy as np
+import torch
 
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
+
+# The tests run in several worker processes at once: one PyTorch intra-op
+# thread per process keeps them from oversubscribing the cores (the port's
+# CPU tests are small; more threads do not make them faster).
+torch.set_num_threads(1)
 
 # tests/test_pallas_warp.py's affine step: frame t+1 = AFFINE(frame t)
 AFFINE = np.float32([[1.002, 0.0005, 1.2], [-0.0005, 0.999, -0.8]])
@@ -49,3 +55,18 @@ def affine_clip(rng, h, w, n):
                                     flags=cv.INTER_LINEAR,
                                     borderMode=cv.BORDER_REFLECT_101))
     return np.stack(frames)
+
+
+def port_cfg(cfg):
+    """The port's copy of an ``lk_tpu.config`` dataclass, built field for
+    field (nested configs rebuilt): the port imports nothing of lk_tpu, so
+    the tests hand it its own config classes."""
+    import dataclasses
+
+    import lk_tpu_torch.config as tc
+
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    for k, v in kw.items():
+        if dataclasses.is_dataclass(v):
+            kw[k] = port_cfg(v)
+    return getattr(tc, type(cfg).__name__)(**kw)
