@@ -1,11 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (lk_tpu_torch) on one NVIDIA GPU.
 
-Drives the port's two paths and checks them.  The dense path: pyramidal
-LK over 1080p video with the production config.  The serving path:
-batched VP serving, MultiStreamPipeline at 64 streams of 860x483 frames,
-chunk 16, out_cap 48, preset final, fed from a u8 staging array on the
-card, as apps/serve.py runs it.
+Drives the port's paths and checks them.  The dense video path: pyramidal
+LK over 1080p video with the production config.  The per-pair dense
+paths at 1080p: A, ``lk_tpu_torch.entry.entry()``'s program (the
+production config per pair, pyrDown kernel + fused level); B, the
+warp-only / precomputed-A config (local warp at L0-L2, the precomputed
+level at the top); C, the default config's XLA level (plain PyTorch but
+for the pyrDown kernel).  The serving path: batched VP serving,
+MultiStreamPipeline at 64 streams of 860x483 frames, chunk 16, out_cap 48,
+preset final, fed from a u8 staging array on the card, as apps/serve.py
+runs it.
 
   0. environment: the card's name and power limit, torch, CUDA, nvcc;
   1. build: compiles every CUDA kernel in csrc/ (one nvcc per source, in
@@ -18,29 +23,50 @@ card, as apps/serve.py runs it.
      launch counters reset just before and read just after; mean EPE vs
      exact ground truth on bench.py's grid must be < 0.1 px;
   4. dense timing with CUDA events: pairs/s (output flow fields per second)
-     of the chained video through the kernel and through the plain version;
+     of the chained video through the kernels and through the plain
+     versions;
   5. only with --profile: host enqueue and wall per video, and a
      torch.profiler breakdown of its device time by kernel group;
-  6. serving scenes: 64 synthetic road streams expanding from a planted
+  6. per-pair kernels vs plain at the paths' shapes: pyrDown on path A's
+     three pair levels, a 5-frame chunk and an odd shape; the local warp
+     at path B's padded L0-L2 with a zoom flow and outliers beyond +-local;
+     the precomputed level at path B's top (136x240, 6 iterations) and
+     tiled (576x1024 on 64x512 tiles, 2 iterations); per call the
+     kernels' own device time (torch.profiler) and the CUDA-event time,
+     plain ms, bound, library call;
+  7. path A: entry()'s fn on its own inputs, then on both scenes' first
+     pair, counters reset just before and read just after each (pyrDown 3,
+     fused level resident 6 + tiled 3, no plain call), EPE < 0.1 px, and
+     the flow equal to the video chain's pair 0 bit for bit;
+  8. paths B and C on both scenes' first pair, counted the same way (B:
+     pyrDown 3, local warp 3, precomputed level 6; C: pyrDown 3 only);
+     B's EPE < 0.1 px, C's printed;
+  9. per-pair timing with CUDA events: ms per pair of paths A, B and C;
+     with --profile also each path's host enqueue and device time by
+     kernel group;
+ 10. serving scenes: 64 synthetic road streams expanding from a planted
      VP per stream (apps/serve.py's), textures made with numpy/scipy, the
      64-frame staging array rendered on the card;
-  7. serving main path: one pass of MultiStreamPipeline.feed_staged +
+ 11. serving main path: one pass of MultiStreamPipeline.feed_staged +
      drain, counters reset just before and read just after (the finish
      kernel once per chunk plus once for the init frame, the window gather
      three times per processed frame, no plain call); every stream runs
      63 frames, the mean late-trajectory VP error is < 25 px
      (tests/test_pipeline_e2e.py's bound); the first 4 streams run again
      through the plain versions on the card give the same csv rows;
-  8. serving kernels vs plain at serving shapes: the finish on (1024, 483,
+ 12. serving kernels vs plain at serving shapes: the finish on (1024, 483,
      860) u8 with and without the tone curve and on an odd shape, the
      gather on the three folded levels of the 64-stream batch with the
-     tracker's frame-major point set and a shuffled one; ms per launch;
-  9. serving timing: aggregate stream-frames/s with CUDA events around
-     whole feed_staged + drain passes after the warm-up pass of phase 7;
- 10. only with --profile: the serving pass's device and host time by
+     tracker's frame-major point set and a shuffled one; device and
+     CUDA-event ms per launch;
+ 13. serving timing: aggregate stream-frames/s with CUDA events around
+     whole feed_staged + drain passes after the warm-up pass of phase 11;
+ 14. only with --profile: the serving pass's device and host time by
      stage, and the device's busy share.
 
-Prints a {"kernels": [...]} JSON line, the card line, and as the last line
+Prints a {"kernels": [...]} JSON line (each entry's "ms" is the kernel's
+own device time per call from torch.profiler, "event_ms" the CUDA-event
+time around the wrapper's calls), the card line, and as the last line
 {"ok": true, "device": {...}}.  Any failed check raises: the exit code is
 then non-zero and no result line is printed.  Without a CUDA device, or run
 from a directory without the package, it exits non-zero at once.
@@ -81,6 +107,22 @@ VP_ERR_LIMIT = 25.0                    # px, tests/test_pipeline_e2e.py:39
 ROWS_TOL = 1e-4                        # px, kernel path vs plain path rows
 KERNEL_TOL = 1e-6                      # kernel vs plain; 0 expected (the
                                        # kernels repeat the plain order)
+# Per-pair paths B and C (path A is lk_tpu_torch.entry's config; the
+# geometry is printed from the port's own functions in phase 6).
+PATH_CFGS = {
+    "B": dict(use_pallas_warp=True, fused_grads_in_kernel=False),
+    "C": dict(),                                             # DenseLKConfig()
+}
+# f32 operations per output pixel, counted on the kernel bodies: pyrDown
+# (9 per vertical-pass value at half the rows and all the columns, 9 per
+# output: 6.75 per input pixel); the local warp (two tent passes of 15:
+# clip d 2, add 1, clip to the level 2, two subtractions, clip to the
+# window 2, floor 1, fraction 1, 1 - f 1, two products and a sum 3); one
+# precomputed-level iteration (warp 30, residual 5, the two products 2,
+# two 15x15 box sums 56, A v 8, solve 8, update and clip 6).
+PYR_OPS_IN_PX = 6.75
+WARP_OPS_PX = 30
+PRE_OPS_PX = 115
 # Peak rates of one H100 SXM (NVIDIA's data sheet) for the bounds.
 HBM_BYTES_S = 3.35e12
 F32_FLOPS = 67e12
@@ -99,10 +141,12 @@ REPLACES = {
 
 
 def configs():
-    """The production config: bench.py's DenseLKConfig, LKConfig defaults."""
-    from lk_tpu_torch.config import DenseLKConfig, LKConfig
+    """The production config (bench.py's, and entry()'s path A):
+    LKConfig defaults, DenseLKConfig(use_pallas_warp=True,
+    pallas_pyramid=True)."""
+    from lk_tpu_torch import entry
 
-    return LKConfig(), DenseLKConfig(use_pallas_warp=True, pallas_pyramid=True)
+    return entry.CFG, entry.DENSE_CFG
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -120,11 +164,24 @@ def device():
 
 def reset_counters() -> None:
     """Every kernel wrapper's launch and plain-call counts to 0."""
-    from lk_tpu_torch.flow import lk_kernels, sparse
-    from lk_tpu_torch.ops import finish
+    from lk_tpu_torch.flow import lk_kernels, sparse, warp_kernels
+    from lk_tpu_torch.ops import blur, finish
 
-    for module in (lk_kernels, finish, sparse):
+    for module in (lk_kernels, finish, sparse, blur, warp_kernels):
         module.reset_counters()
+
+
+def dense_counts() -> tuple[dict, int]:
+    """(launches by dense kernel, plain-version calls of the dense kernels)
+    since the last reset_counters()."""
+    from lk_tpu_torch.flow import lk_kernels as lk
+    from lk_tpu_torch.flow import warp_kernels as wk
+    from lk_tpu_torch.ops import blur
+
+    counts = dict(lk.kernel_launches_by_variant, **wk.kernel_launches,
+                  pyr_down=blur.kernel_launches)
+    return counts, (lk.plain_calls + sum(wk.plain_calls.values())
+                    + blur.plain_calls)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -261,8 +318,8 @@ def compare_levels(stacks, plan, cfg, timing_reps):
     """Phase 2: kernel vs plain version per level, for K pairs and for one
     pair.  Every level reads the plain version's K-pair output of the level
     above (pair 0 of it for the single-pair run), so both sides see the
-    same input.  Returns per-variant {max_abs_err, ms, plain_ms} and the
-    per-level report rows."""
+    same input.  Returns per-variant {max_abs_err, ms (device), event_ms,
+    plain_ms, bound_ms, bound_by} and the per-level report rows."""
     import torch
     from lk_tpu_torch.flow import lk_kernels as lk
 
@@ -299,14 +356,17 @@ def compare_levels(stacks, plan, cfg, timing_reps):
                       f"{name}: K=1 stats differ from chunk pair 0")
                 coarse = cp[:1]
             ms = cuda_ms(lambda: lk.fused_lk_level(*args, **kw), timing_reps)
+            dms = device_us(lambda: lk.fused_lk_level(*args, **kw),
+                            "fused_lk_level_kernel") / 1e3
             pms = cuda_ms(lambda: lk.fused_lk_level_reference(*args, **kw),
                           max(1, timing_reps // 10))
-            rows.append((k, name, var, err, eig, flips, ms, pms))
+            rows.append((k, name, var, err, eig, flips, dms, ms, pms))
             v = per_variant.setdefault(
-                var, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-                      "bound_ms": 0.0, "bound_by": {}})
+                var, {"max_abs_err": 0.0, "ms": 0.0, "event_ms": 0.0,
+                      "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": {}})
             v["max_abs_err"] = max(v["max_abs_err"], err)
-            v["ms"] += ms
+            v["ms"] += dms
+            v["event_ms"] += ms
             v["plain_ms"] += pms
             b_ms, b_by = level_bound(k, *st.shape[1:], kw)
             v["bound_ms"] += b_ms
@@ -314,53 +374,410 @@ def compare_levels(stacks, plan, cfg, timing_reps):
     return per_variant, rows
 
 
-def profile_video(run_video, card: str, reps: int = 3) -> None:
-    """Phase 5 (--profile): where the device time of the 1080p video goes.
-    Host enqueue and wall per video without the profiler, then a
-    torch.profiler trace of ``reps`` videos: device ms per video by kernel
-    group, and the busy share of the traced device span."""
+KERNEL_GROUPS = (("fused_lk_level_kernel", "fused_lk_level"),
+                 ("pyr_down_kernel", "pyr_down"),
+                 ("local_warp_kernel", "local_warp"),
+                 ("fused_level_pre_kernel", "fused_level_pre"))
+
+
+def kernel_group(name: str) -> str:
+    """Report group of a device kernel's name."""
+    for group, key in KERNEL_GROUPS:
+        if key in name:
+            return group
+    return ("gather / index_select" if ("gather" in name or "index" in name)
+            else "cat" if "Cat" in name
+            else "elementwise (mul/add)" if "elementwise" in name
+            else "other")
+
+
+def traced_kernels(run, reps):
+    """The device kernels torch.profiler records over ``reps`` runs."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    run_video()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        t0 = time.perf_counter()
-        run_video()
-        enq = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        print(f"[profile] video: host enqueue {enq * 1e3:.2f} ms, wall "
-              f"{wall * 1e3:.2f} ms  [{card}]")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            run_video()
+            run()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     check(bool(kernels), "the profiler saw no device time")
+    return kernels
+
+
+def device_us(run, name: str, reps: int = 10) -> float:
+    """Device time in us per run of the kernels whose name holds ``name``
+    (torch.profiler; reps runs after one warm-up): a kernel's own time,
+    which CUDA events around host-bound launches do not give."""
+    import torch
+
+    run()
+    torch.cuda.synchronize()
+    ks = [e for e in traced_kernels(run, reps) if name in e.name]
+    check(bool(ks), f"the profiler saw no {name}")
+    return sum(e.time_range.elapsed_us() for e in ks) / reps
+
+
+def profile_run(label: str, run, card: str, reps: int = 3) -> None:
+    """Phases 5 and 9 (--profile): where the device time of one run goes.
+    Host enqueue and wall per run without the profiler, then a
+    torch.profiler trace of ``reps`` runs: device ms per run by kernel
+    group, and the busy share of the traced device span."""
+    import torch
+
+    run()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        enq = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        print(f"[profile] {label}: host enqueue {enq * 1e3:.2f} ms, wall "
+              f"{wall * 1e3:.2f} ms  [{card}]")
+    kernels = traced_kernels(run, reps)
     groups = {}
     for e in kernels:
-        name = e.name
-        group = ("fused_lk_level_kernel" if "fused_lk_level" in name
-                 else "gather / index_select" if ("gather" in name
-                                                  or "index" in name)
-                 else "cat" if "Cat" in name
-                 else "elementwise (mul/add)" if "elementwise" in name
-                 else "other")
+        group = kernel_group(e.name)
         n, us = groups.get(group, (0, 0.0))
         groups[group] = (n + 1, us + e.time_range.elapsed_us())
     busy = sum(us for _, us in groups.values())
     span = (max(e.time_range.end for e in kernels)
             - min(e.time_range.start for e in kernels))
     for group, (n, us) in sorted(groups.items(), key=lambda g: -g[1][1]):
-        print(f"[profile] {group}: {us / reps / 1e3:.3f} ms per video "
+        print(f"[profile] {label} {group}: {us / reps / 1e3:.3f} ms per run "
               f"({n // reps} launches), {us / busy:.1%} of device time  "
               f"[{card}]")
-    print(f"[profile] device busy {busy / reps / 1e3:.3f} ms per video, "
-          f"{busy / span:.1%} of the traced device span "
-          f"({span / reps / 1e3:.3f} ms per video)  [{card}]")
+    print(f"[profile] {label}: device busy {busy / reps / 1e3:.3f} ms per "
+          f"run, {len(kernels) // reps} launches, {busy / span:.1%} of the "
+          f"traced device span ({span / reps / 1e3:.3f} ms per run)  "
+          f"[{card}]")
+
+
+# --------------------------------------------------------------------------
+# per-pair dense paths: kernels vs plain, paths A/B/C, timing
+# --------------------------------------------------------------------------
+
+def path_cfg(name):
+    from lk_tpu_torch import entry
+    from lk_tpu_torch.config import DenseLKConfig
+
+    if name == "A":
+        return entry.DENSE_CFG
+    return DenseLKConfig(**PATH_CFGS[name])
+
+
+def path_levels(name, cfg):
+    """Per level of a per-pair path at 1080p, as dense_flow_from_levels
+    configures it: (level, (h, w), level DenseLKConfig, geometry)."""
+    from lk_tpu_torch.flow import dense
+
+    dcfg = path_cfg(name)
+    ecfg = dense._effective_cfg(cfg, dcfg, (H, W))
+    h, w = dense.pyramid_base_geometry(H, W, ecfg, dcfg)
+    out = []
+    for level, lcfg in enumerate(dense.level_configs(dcfg, ecfg.max_level)):
+        out.append((level, (h, w), lcfg,
+                    dense.pallas_level_geometry(h, w, lcfg)))
+        h, w = (h + 1) // 2, (w + 1) // 2
+    return out
+
+
+def zoom_flow(h, w, dev, outliers, seed=11):
+    """(2, h, w) smooth zoom flow (+-0.01 px per px about the centre, plus
+    a shift); with outliers, 1,000 pixels moved by up to +-40 px, beyond
+    every +-local and some beyond max_disp."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    flow = np.stack([(xs - w / 2) * 0.01 + 1.5, (ys - h / 2) * 0.01 - 1.0])
+    if outliers:
+        idx = rng.integers(0, h * w, 1000)
+        flow.reshape(2, -1)[:, idx] += rng.uniform(-40, 40, (2, 1000))
+    return torch.from_numpy(flow.astype(np.float32)).to(dev)
+
+
+def perpair_kernels(frames0, cfg, card, reps=20):
+    """Phase 6: the three per-pair kernels against their plain versions at
+    the paths' shapes, with ms per call, the plain ms, the bound and a
+    library call; returns their report entries (launches filled later)."""
+    import torch
+    import torch.nn.functional as F
+    from lk_tpu_torch.flow import dense
+    from lk_tpu_torch.flow import warp_kernels as wk
+    from lk_tpu_torch.ops import blur
+
+    dev = frames0.device
+
+    def cmp(a, b, what):
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(a).all()), f"{what}: non-finite output")
+        check(a.shape == b.shape, f"{what}: {tuple(a.shape)} vs "
+              f"{tuple(b.shape)}")
+        e = float((a - b).abs().max())
+        check(e <= KERNEL_TOL, f"{what}: max|d| {e}")
+        return e
+
+    for name in ("A", "B"):
+        for level, hw, lcfg, geo in path_levels(name, cfg):
+            print(f"[geometry] path {name} L{level} {hw[0]}x{hw[1]}: "
+                  f"iters {lcfg.outer_iters}, fused {lcfg.use_pallas_fused},"
+                  f" grads in kernel {lcfg.fused_grads_in_kernel}, local "
+                  f"{lcfg.warp_local}, disp {lcfg.level_disp(level)}; "
+                  f"(resident, th, tw, hp, wp) = {geo}")
+
+    # --- pyrDown: path A's pair pyramid, a K+1 chunk, an odd shape ---------
+    base = dense._edge_pad(frames0[:K + 1], *dense.pyramid_base_geometry(
+        H, W, cfg, path_cfg("A")))
+    pair = [base[:2].contiguous()]
+    for _ in range(2):
+        pair.append(blur.pyr_down_reference(pair[-1]))
+    odd = torch.from_numpy(np.random.default_rng(3).random(
+        (3, 483, 861), dtype=np.float32) * 255).to(dev)
+    err_p = 0.0
+    for x in pair + [base, odd]:
+        e = cmp(blur.pyr_down(x), blur.pyr_down_reference(x),
+                f"pyr_down {tuple(x.shape)}")
+        err_p = max(err_p, e)
+        print(f"[kernel] pyr_down {tuple(x.shape)}: max|d| {e:.3g}")
+    g5 = torch.tensor([1.0, 4.0, 6.0, 4.0, 1.0], device=dev) / 16.0
+    conv = torch.nn.Conv2d(1, 1, 5, stride=2, padding=2,
+                           padding_mode="reflect", bias=False).to(dev)
+    ms_p = pms_p = lib_p = b_p = dev_p = 0.0
+    by_p = set()
+    with torch.no_grad():
+        conv.weight.copy_((g5[:, None] * g5[None, :])[None, None])
+        for x in pair:
+            ms = cuda_ms(lambda x=x: blur.pyr_down(x), reps)
+            dev_us = device_us(lambda x=x: blur.pyr_down(x),
+                               "pyr_down_kernel")
+            dev_p += dev_us
+            pms = cuda_ms(lambda x=x: blur.pyr_down_reference(x), 5)
+            xc = x[:, None]
+            lib = cuda_ms(lambda xc=xc: conv(xc), reps)
+            lib_err = float((conv(xc)[:, 0] - blur.pyr_down(x)).abs().max())
+            n, h, w = x.shape
+            bm, bb = bound((n * h * w + n * ((h + 1) // 2) * ((w + 1) // 2))
+                           * 4, n * h * w * PYR_OPS_IN_PX)
+            ms_p, pms_p, lib_p, b_p = ms_p + ms, pms_p + pms, lib_p + lib, \
+                b_p + bm
+            by_p.add(bb)
+            print(f"[kernel] pyr_down {tuple(x.shape)} (path A pair level): "
+                  f"kernel device {dev_us:.1f} us (events {ms:.4f} ms), plain "
+                  f"{pms:.3f} ms, bound {bm:.4f} ms ({bb}), library "
+                  f"nn.Conv2d 5x5 stride 2 reflect {lib:.4f} ms (max|d| "
+                  f"{lib_err:.3g})  [{card}]")
+    print(f"[kernel] pyr_down, path A's pair pyramid (3 launches): kernel "
+          f"device {dev_p:.1f} us (events {ms_p:.4f} ms), plain "
+          f"{pms_p:.3f} ms, bound {b_p:.4f} ms, library {lib_p:.4f} ms  "
+          f"[{card}]")
+    del base, pair
+
+    # --- local warp: path B's L0-L2 at their padded shapes ------------------
+    b_levels = path_levels("B", cfg)
+    nxt_levels = dense.build_frame_levels(frames0[1], cfg, path_cfg("B"))
+    ms_w = pms_w = lib_w = b_w = dev_w = 0.0
+    err_w = 0.0
+    by_w = set()
+    top = None
+    for level, (h, w), lcfg, (_, th, tw, hp, wp) in b_levels:
+        nxt = dense._edge_pad(nxt_levels[level], hp, wp).contiguous()
+        if lcfg.use_pallas_fused:
+            top = (level, nxt, lcfg, th, tw, hp, wp)
+            continue
+        flow = zoom_flow(hp, wp, dev, outliers=True)
+        kw = dict(max_disp=lcfg.level_disp(level), tile_h=th, tile_w=tw,
+                  local=lcfg.warp_local)
+        e = cmp(wk.local_warp(nxt, flow, **kw),
+                wk.local_warp_reference(nxt, flow, **kw),
+                f"local_warp L{level}")
+        err_w = max(err_w, e)
+        ms = cuda_ms(lambda: wk.local_warp(nxt, flow, **kw), reps)
+        dev_us = device_us(lambda: wk.local_warp(nxt, flow, **kw),
+                           "local_warp_kernel")
+        dev_w += dev_us
+        pms = cuda_ms(lambda: wk.local_warp_reference(nxt, flow, **kw), 3)
+        ys, xs = torch.meshgrid(torch.arange(hp, device=dev),
+                                torch.arange(wp, device=dev), indexing="ij")
+        grid = torch.stack([(xs + flow[0]) * (2.0 / (wp - 1)) - 1.0,
+                            (ys + flow[1]) * (2.0 / (hp - 1)) - 1.0],
+                           -1)[None]
+        img = nxt[None, None]
+        lib = cuda_ms(lambda: F.grid_sample(
+            img, grid, mode="bilinear", padding_mode="border",
+            align_corners=True), reps)
+        bm, bb = bound(hp * wp * 16, hp * wp * WARP_OPS_PX)
+        ms_w, pms_w, lib_w, b_w = ms_w + ms, pms_w + pms, lib_w + lib, \
+            b_w + bm
+        by_w.add(bb)
+        print(f"[kernel] local_warp L{level} {hp}x{wp} tile {th}x{tw} local "
+              f"{kw['local']} disp {kw['max_disp']}: max|d| {e:.3g}; kernel "
+              f"device {dev_us:.1f} us (events {ms:.4f} ms), plain "
+              f"{pms:.3f} ms, bound {bm:.4f} ms ({bb}), library "
+              f"F.grid_sample (2-D, no +-local clamp) {lib:.4f} ms  "
+              f"[{card}]")
+    print(f"[kernel] local_warp, path B's L0-L2 (3 launches): kernel "
+          f"device {dev_w:.1f} us (events {ms_w:.4f} ms), plain "
+          f"{pms_w:.3f} ms, bound {b_w:.4f} ms, library {lib_w:.4f} ms  "
+          f"[{card}]")
+
+    # --- precomputed level: path B's top, and a tiled level -----------------
+    prev_levels = dense.build_frame_levels(frames0[0], cfg, path_cfg("B"))
+    level, nxt_top, lcfg, th, tw, hp, wp = top
+    l1 = b_levels[1]
+    cases = [(f"L{level} {hp}x{wp} tile {th}x{tw}", level, nxt_top, hp, wp,
+              th, tw, lcfg.warp_local, lcfg.level_disp(level),
+              lcfg.outer_iters),
+             ("L1 576x1024 tile 64x512", 1,
+              dense._edge_pad(nxt_levels[1], 576, 1024).contiguous(), 576,
+              1024, 64, 512, l1[2].warp_local, l1[2].level_disp(1), 2)]
+    entry = None
+    err_f = 0.0
+    for label, lv, nxt, hp, wp, th, tw, local, disp, iters in cases:
+        prev = dense._edge_pad(prev_levels[lv], hp, wp).contiguous()
+        ix, iy, a11, a12, a22, _, _, inv_det = dense.level_prologue(
+            prev, cfg, "edge")
+        flow = zoom_flow(hp, wp, dev, outliers=True) * 0.25
+        args = (nxt, prev, ix, iy, a11, a12, a22, inv_det, flow)
+        kw = dict(n_iters=iters, max_disp=disp, tile_h=th, tile_w=tw,
+                  local=local, win_k=cfg.win_size[1])
+        e = cmp(wk.fused_lk_level_precomputed(*args, **kw),
+                wk.fused_lk_level_precomputed_reference(*args, **kw),
+                f"fused_lk_level_precomputed {label}")
+        err_f = max(err_f, e)
+        ms = cuda_ms(lambda: wk.fused_lk_level_precomputed(*args, **kw),
+                     reps)
+        dev_us = device_us(lambda: wk.fused_lk_level_precomputed(
+            *args, **kw), "fused_level_pre_kernel")
+        pms = cuda_ms(lambda: wk.fused_lk_level_precomputed_reference(
+            *args, **kw), 3)
+        # the 8 read-only planes and the initial flow read once, the flow
+        # written once (the iterations' ping-pong stays in L2); the
+        # operations once per iteration
+        bm, bb = bound(hp * wp * (8 + 2 + 2) * 4,
+                       iters * hp * wp * PRE_OPS_PX)
+        print(f"[kernel] fused_lk_level_precomputed {label} x{iters} "
+              f"(local {local}, disp {disp}): max|d| {e:.3g} px; kernel "
+              f"device {dev_us:.1f} us ({dev_us / iters:.1f} per launch; "
+              f"events {ms:.4f} ms), plain {pms:.3f} ms, bound {bm:.5f} ms "
+              f"({bb})  [{card}]")
+        if entry is None:            # path B's own call: the report entry
+            entry = (dev_us / 1e3, ms, pms, bm, bb)
+    return [
+        {"name": "pyr_down", "route": "cuda",
+         "source": "lk_tpu_torch/csrc/pyr_down.cu",
+         "replaces": "lk_tpu/flow/pallas_kernels.py:2660",
+         "max_abs_err": err_p, "ms": dev_p / 1e3, "event_ms": ms_p,
+         "plain_ms": pms_p,
+         "bound_ms": b_p,
+         "bound_by": "bytes" if by_p == {"bytes"} else "operations",
+         "library_ms": lib_p},
+        {"name": "local_warp", "route": "cuda",
+         "source": "lk_tpu_torch/csrc/local_warp.cu",
+         "replaces": "lk_tpu/flow/pallas_kernels.py:330",
+         "max_abs_err": err_w, "ms": dev_w / 1e3, "event_ms": ms_w,
+         "plain_ms": pms_w,
+         "bound_ms": b_w,
+         "bound_by": "bytes" if by_w == {"bytes"} else "operations",
+         "library_ms": lib_w},
+        {"name": "fused_lk_level_precomputed", "route": "cuda",
+         "source": "lk_tpu_torch/csrc/fused_level_pre.cu",
+         "replaces": "lk_tpu/flow/pallas_kernels.py:2040",
+         "max_abs_err": err_f, "ms": entry[0], "event_ms": entry[1],
+         "plain_ms": entry[2], "bound_ms": entry[3], "bound_by": entry[4],
+         "library_ms": None},
+    ]
+
+
+EXPECT = {   # launches per pair at 1080p; every other count 0
+    "A": {"pyr_down": 3, "resident": 6, "tiled": 3},
+    "B": {"pyr_down": 3, "local_warp": 3, "fused_lk_level_precomputed": 6},
+    "C": {"pyr_down": 3},
+}
+
+
+def counted(name, fn, *args):
+    """fn(*args) with the counters reset just before and read just after;
+    checks path ``name``'s launches and that no plain version ran."""
+    import torch
+
+    torch.cuda.synchronize()
+    reset_counters()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    counts, plain = dense_counts()
+    want = {k: EXPECT[name].get(k, 0) for k in counts}
+    check(plain == 0, f"path {name}: plain versions ran {plain}x")
+    check(counts == want, f"path {name}: launches {counts}, expected {want}")
+    return out, {k: n for k, n in counts.items() if n}
+
+
+def perpair_paths(scenes, video_pair0, cfg, card):
+    """Phases 7-8: paths A (through entry()), B and C on both scenes' first
+    pair; returns the launch counts of A's and B's first scene."""
+    import torch
+    from lk_tpu_torch.entry import entry
+    from lk_tpu_torch.flow import dense
+
+    fn, args = entry()
+    flow, counts = counted("A", fn, *args)
+    check(tuple(flow.shape) == (H, W, 2), f"entry flow {tuple(flow.shape)}")
+    check(bool(torch.isfinite(flow).all()), "entry: non-finite flow")
+    print(f"[path A] entry() on its rng(0) noise pair: flow "
+          f"{tuple(flow.shape)}, finite, launches {counts}, plain calls 0")
+    del args
+    result = {}
+    for label, a, frames_np in scenes:
+        pair = torch.from_numpy(frames_np[:2]).to(device())
+        flow, counts = counted("A", fn, pair[0], pair[1])
+        result.setdefault("A", counts)
+        epe = mean_epe(flow[None].cpu().numpy(), a)
+        same = torch.equal(flow, video_pair0[label])
+        d = float((flow - video_pair0[label]).abs().max())
+        print(f"[path A] {label}: launches {counts}, plain calls 0, mean "
+              f"EPE {epe:.4f} px (limit {EPE_LIMIT}); == video chain pair "
+              f"0: {same} (max|d| {d:.3g} px)")
+        check(epe < EPE_LIMIT, f"path A {label}: EPE {epe}")
+        check(same, f"path A {label}: per-pair flow differs from the video "
+              f"chain's pair 0 by {d} px")
+        for name in ("B", "C"):
+            res, counts = counted(name, dense.dense_pyramidal_lk, pair[0],
+                                  pair[1], cfg, None, path_cfg(name))
+            result.setdefault(name, counts)
+            flow = res.flow
+            check(tuple(flow.shape) == (H, W, 2)
+                  and bool(torch.isfinite(flow).all()),
+                  f"path {name} {label}: flow {tuple(flow.shape)}")
+            epe = mean_epe(flow[None].cpu().numpy(), a)
+            limit = f" (limit {EPE_LIMIT})" if name == "B" else ""
+            print(f"[path {name}] {label}: launches {counts}, plain calls "
+                  f"0, valid {float(res.valid.float().mean()):.4f}, mean "
+                  f"EPE {epe:.4f} px{limit}")
+            if name == "B":
+                check(epe < EPE_LIMIT, f"path B {label}: EPE {epe}")
+    return result
+
+
+def perpair_timing(frames0, cfg, card, profile):
+    """Phase 9: ms per pair of paths A, B and C (CUDA events, warm); with
+    --profile also each path's host enqueue and device breakdown."""
+    from lk_tpu_torch.flow import dense
+
+    f0, f1 = frames0[0], frames0[1]
+    for name, reps in (("A", 20), ("B", 10), ("C", 5)):
+        dcfg = path_cfg(name)
+
+        def run():
+            dense.dense_pyramidal_lk(f0, f1, cfg, dense_cfg=dcfg)
+
+        ms = cuda_ms(run, reps)
+        print(f"[time] path {name} dense_pyramidal_lk {H}x{W}: {ms:.3f} ms "
+              f"per pair = {1e3 / ms:.1f} pairs/s  [{card}]")
+        if profile:
+            profile_run(f"path {name} pair", run, card)
 
 
 # --------------------------------------------------------------------------
@@ -456,17 +873,19 @@ def plain_versions():
     import contextlib
 
     from lk_tpu_torch.flow import sparse
-    from lk_tpu_torch.ops import finish
+    from lk_tpu_torch.ops import blur, finish
 
     @contextlib.contextmanager
     def ctx():
-        old = finish.fused_finish, sparse.gather_windows
+        old = finish.fused_finish, sparse.gather_windows, sparse.pyr_down
         finish.fused_finish = finish.fused_finish_reference
         sparse.gather_windows = sparse.gather_windows_reference
+        sparse.pyr_down = blur.pyr_down_reference
         try:
             yield
         finally:
-            finish.fused_finish, sparse.gather_windows = old
+            (finish.fused_finish, sparse.gather_windows,
+             sparse.pyr_down) = old
 
     return ctx()
 
@@ -484,11 +903,11 @@ def vp_errors(ms, vps):
 
 
 def serving_main_path(staging, vps, card):
-    """Phase 7: the counted serving pass, its checks, and the 4-stream
+    """Phase 11: the counted serving pass, its checks, and the 4-stream
     plain-path comparison.  Returns (launch counts, the pass)."""
     import torch
     from lk_tpu_torch.flow import sparse
-    from lk_tpu_torch.ops import finish
+    from lk_tpu_torch.ops import blur, finish
 
     torch.cuda.synchronize()
     reset_counters()
@@ -497,8 +916,9 @@ def serving_main_path(staging, vps, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"finish": finish.kernel_launches,
-                "window_gather": sparse.kernel_launches}
-    plain = finish.plain_calls + sparse.plain_calls
+                "window_gather": sparse.kernel_launches,
+                "pyr_down": blur.kernel_launches}
+    plain = finish.plain_calls + sparse.plain_calls + blur.plain_calls
     frames = SF - 1
     print(f"[serve] B={SB} {SW}x{SH} chunk {S_CHUNK} out_cap {S_CAP} preset "
           f"final, {SF} staged frames: launches {launches}, plain calls "
@@ -579,7 +999,7 @@ def gather_bound(n, win_h, win_w, sw_h, sw_w):
 
 
 def serving_kernels(staging, card, reps=20):
-    """Phase 8: the finish and the gather against their plain versions at
+    """Phase 12: the finish and the gather against their plain versions at
     the serving shapes; returns their report entries."""
     import torch
     from lk_tpu_torch.flow import sparse
@@ -604,6 +1024,8 @@ def serving_kernels(staging, card, reps=20):
             check(e <= KERNEL_TOL, f"finish {label}: max|d| {e}")
             err_f = max(err_f, e)
     ms_f = cuda_ms(lambda: finish.fused_finish(chunk), reps)
+    dms_f = device_us(lambda: finish.fused_finish(chunk), "finish_kernel") \
+        / 1e3
     pms_f = cuda_ms(lambda: finish.fused_finish_reference(chunk), 3)
     ms_ft = cuda_ms(lambda: finish.fused_finish(chunk, True), reps)
     px = chunk.numel()
@@ -619,13 +1041,14 @@ def serving_kernels(staging, card, reps=20):
                         .abs().max())
     del xf
     print(f"[kernel] finish {tuple(chunk.shape)} u8 (one serving chunk): "
-          f"kernel {ms_f:.3f} ms (tone on {ms_ft:.3f}), plain {pms_f:.3f} "
+          f"kernel device {dms_f:.3f} ms (events {ms_f:.3f}, tone on "
+          f"{ms_ft:.3f}), plain {pms_f:.3f} "
           f"ms, bound {b_f:.3f} ms ({by_f}), library nn.Conv2d reflect on "
           f"the f32 frames {lib_f:.3f} ms (max|d| {lib_err:.3g})  [{card}]")
 
     # --- gather: the tracker's calls of one frame step, and shuffled -------
     calls = record_gathers(staging)
-    err_g, ms_g, pms_g, b_g, by_g = 0.0, [], [], [], set()
+    err_g, ms_g, dms_g, pms_g, b_g, by_g = 0.0, [], [], [], [], set()
     perm_rng = np.random.default_rng(0)
     for i, args in enumerate(calls[-3:]):
         prev_f, next_f, cy, cx, sy, sx, wh, ww, swh, sww = args
@@ -642,25 +1065,30 @@ def serving_kernels(staging, card, reps=20):
             err_g = max(err_g, e)
         a = (prev_f, next_f, cy, cx, sy, sx, wh, ww, swh, sww)
         ms_g.append(cuda_ms(lambda: sparse.gather_windows(*a), reps))
+        dms_g.append(device_us(lambda: sparse.gather_windows(*a),
+                               "window_gather_kernel") / 1e3)
         pms_g.append(cuda_ms(lambda: sparse.gather_windows_reference(*a), 5))
         bm, bb = gather_bound(n, wh, ww, swh, sww)
         b_g.append(bm)
         by_g.add(bb)
         print(f"[kernel] window_gather level {2 - i}: folded "
               f"{tuple(prev_f.shape)}, {n} points, frame-major and "
-              f"shuffled max|d| {err_g:.3g}; kernel {ms_g[-1]:.4f} ms, "
+              f"shuffled max|d| {err_g:.3g}; kernel device "
+              f"{dms_g[-1] * 1e3:.1f} us (events {ms_g[-1]:.4f} ms), "
               f"plain {pms_g[-1]:.3f} ms, bound {bm:.4f} ms ({bb})  "
               f"[{card}]")
     return [
         {"name": "finish", "route": "cuda",
          "source": "lk_tpu_torch/csrc/finish.cu",
          "replaces": "lk_tpu/ops/pallas_finish.py:114",
-         "max_abs_err": err_f, "ms": ms_f, "plain_ms": pms_f,
+         "max_abs_err": err_f, "ms": dms_f, "event_ms": ms_f,
+         "plain_ms": pms_f,
          "bound_ms": b_f, "bound_by": by_f, "library_ms": lib_f},
         {"name": "window_gather", "route": "cuda",
          "source": "lk_tpu_torch/csrc/window_gather.cu",
          "replaces": "lk_tpu/flow/pallas_kernels.py:2358",
-         "max_abs_err": err_g, "ms": float(np.mean(ms_g)),
+         "max_abs_err": err_g, "ms": float(np.mean(dms_g)),
+         "event_ms": float(np.mean(ms_g)),
          "plain_ms": float(np.mean(pms_g)),
          "bound_ms": float(np.mean(b_g)),
          "bound_by": "bytes" if by_g == {"bytes"} else "operations",
@@ -669,8 +1097,8 @@ def serving_kernels(staging, card, reps=20):
 
 
 def serving_timing(staging, card, passes=2):
-    """Phase 9: aggregate stream-frames/s of whole passes (feed_staged +
-    drain), CUDA events, after phase 7's warm-up pass."""
+    """Phase 13: aggregate stream-frames/s of whole passes (feed_staged +
+    drain), CUDA events, after phase 11's warm-up pass."""
     import torch
 
     start = torch.cuda.Event(enable_timing=True)
@@ -698,7 +1126,7 @@ STAGES = ("serve.finish", "tracker.fold", "tracker.gather", "tracker.refine",
 
 
 def profile_serving(staging, card):
-    """Phase 10 (--profile): where a serving pass's time goes, by the
+    """Phase 14 (--profile): where a serving pass's time goes, by the
     port's profiler ranges.  The ranges appear twice in the trace: as CPU
     ranges (host time inside each stage) and as annotations on the device
     timeline; each kernel counts for the stage whose device annotation
@@ -767,12 +1195,13 @@ def main() -> int:
     from lk_tpu_torch import _build
     from lk_tpu_torch.flow import dense
     from lk_tpu_torch.flow import lk_kernels as lk
+    from lk_tpu_torch.ops import blur
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = device()
 
-    # --- 0. environment -------------------------------------------------------
+    # --- 0. environment ------------------------------------------------------
     card = card_line()
     print(f"[env] card: {card}")
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -780,7 +1209,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     print(f"[env] nvcc: {sh([_build._nvcc(), '--version']).splitlines()[-1]}")
 
-    # --- 1. build -------------------------------------------------------------
+    # --- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
     _build.library()
     nvcc = ("cached" if _build.build_seconds is None
@@ -812,20 +1241,21 @@ def main() -> int:
     print(f"[data] 2 scenes x {FRAMES} frames {H}x{W}: "
           f"{time.perf_counter() - t0:.1f} s (host, set-up)")
 
-    # --- 2. kernel vs plain at the 1080p plan shapes ---------------------------
+    # --- 2. kernel vs plain at the 1080p plan shapes -------------------------
     frames0 = torch.from_numpy(scenes[0][2]).to(dev)
     stacks = dense.build_frame_levels(frames0[:K + 1], cfg, dcfg)
     per_variant, rows = compare_levels(stacks, plan, cfg, timing_reps=20)
-    for k, name, var, err, eig, flips, ms, pms in rows:
+    for k, name, var, err, eig, flips, dms, ms, pms in rows:
         print(f"[kernel] K={k} {name} ({var}): max|dflow| {err:.3g} px, "
               f"max rel dmin_eig {eig:.3g}, valid flips {flips:.3g}; "
-              f"kernel {ms:.3f} ms ({ms / k:.3f} ms/pair), plain "
-              f"{pms:.3f} ms  [{card}]")
+              f"kernel device {dms:.3f} ms ({dms / k:.3f} ms/pair; events "
+              f"{ms:.3f} ms), plain {pms:.3f} ms  [{card}]")
     print(f"[kernel] chunk (K={K}) output == single-pair output: "
           "bit-identical")
 
-    # --- 3. main path -------------------------------------------------------------
+    # --- 3. main path --------------------------------------------------------
     launches = None
+    video_pair0 = {}
     for label, a, frames_np in scenes:
         frames = torch.from_numpy(frames_np).to(dev)
         torch.cuda.synchronize()
@@ -833,11 +1263,15 @@ def main() -> int:
         out = dense.dense_pyramidal_lk_video(frames, cfg, dcfg)
         torch.cuda.synchronize()
         counts = dict(lk.kernel_launches_by_variant)
-        check(lk.plain_calls == 0, f"plain version ran {lk.plain_calls}x")
+        plain = lk.plain_calls + blur.plain_calls
+        check(plain == 0, f"plain versions ran {plain}x")
         check(all(n > 0 for n in counts.values()),
               f"a kernel variant never launched: {counts}")
+        check(blur.kernel_launches > 0, "the pyrDown kernel never launched")
+        counts["pyr_down"] = blur.kernel_launches
         if launches is None:
             launches = counts
+        video_pair0[label] = out.flow[0].clone()
         flow = out.flow.cpu().numpy()
         check(flow.shape == (FRAMES - 1, H, W, 2), f"flow {flow.shape}")
         check(bool(np.isfinite(flow).all()), "non-finite flow")
@@ -845,26 +1279,28 @@ def main() -> int:
               and out.valid.dtype == torch.bool, "stats shape/dtype")
         epe = mean_epe(flow, a)
         print(f"[main] {label}: {FRAMES} frames -> flow {flow.shape}, "
-              f"launches {counts}, plain calls {lk.plain_calls}, "
+              f"launches {counts}, plain calls {plain}, "
               f"valid {float(out.valid.float().mean()):.4f}, mean EPE vs "
               f"ground truth {epe:.4f} px (limit {EPE_LIMIT})")
         check(epe < EPE_LIMIT, f"{label}: EPE {epe} >= {EPE_LIMIT}")
     del out, frames
 
-    # --- 4. timing: the chained 1080p video, kernel vs plain ------------------
+    # --- 4. timing: the chained 1080p video, kernel vs plain -----------------
     frames = frames0
 
     def run_video():
         dense.dense_pyramidal_lk_video(frames, cfg, dcfg)
 
     def run_video_plain():
-        # dense.py looks fused_lk_level up at call time: point it at the
-        # plain version for this run only
+        # dense.py looks its kernels' wrappers up at call time: point them
+        # at the plain versions for this run only
         dense.fused_lk_level = lk.fused_lk_level_reference
+        dense.pyr_down = blur.pyr_down_reference
         try:
             run_video()
         finally:
             dense.fused_lk_level = lk.fused_lk_level
+            dense.pyr_down = blur.pyr_down
 
     times = {"plain": [], "kernel": []}
     for which in ("plain", "kernel", "kernel", "plain"):
@@ -878,23 +1314,33 @@ def main() -> int:
           f"pairs/s; plain {pms:.2f} ms = {pairs / pms * 1e3:.1f} pairs/s"
           f" (one pair = one output flow field)  [{card}]")
     if profile:
-        profile_video(run_video, card)
-    del frames, frames0, stacks, scenes
+        profile_run("video", run_video, card)
+    del frames, stacks
 
-    # --- 6. serving scenes ------------------------------------------------------
+    # --- 6. per-pair kernels vs plain at the paths' shapes -------------------
+    p_kernels = perpair_kernels(frames0, cfg, card)
+
+    # --- 7-8. paths A (entry()), B and C, counted ----------------------------
+    p_launches = perpair_paths(scenes, video_pair0, cfg, card)
+
+    # --- 9. per-pair timing --------------------------------------------------
+    perpair_timing(frames0, cfg, card, profile)
+    del frames0, scenes, video_pair0
+
+    # --- 10. serving scenes --------------------------------------------------
     t0 = time.perf_counter()
     staging, vps = road_staging(dev)
     torch.cuda.synchronize()
     print(f"[data] serving staging {tuple(staging.shape)} u8: "
           f"{time.perf_counter() - t0:.1f} s (set-up)")
 
-    # --- 7. serving main path ----------------------------------------------------
+    # --- 11. serving main path -----------------------------------------------
     s_launches, _ = serving_main_path(staging, vps, card)
 
-    # --- 8. serving kernels vs plain at serving shapes ---------------------------
+    # --- 12. serving kernels vs plain at serving shapes ----------------------
     s_kernels = serving_kernels(staging, card)
 
-    # --- 9. serving timing ---------------------------------------------------------
+    # --- 13. serving timing --------------------------------------------------
     rates = serving_timing(staging, card)
     print(f"[time] serving B={SB} {SW}x{SH}: aggregate "
           f"{max(rates):.1f} stream-frames/s (best of {len(rates)} passes; "
@@ -906,7 +1352,8 @@ def main() -> int:
         {"name": f"fused_lk_level[{v}]", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[v], "launches": launches[v],
          "max_abs_err": per_variant[v]["max_abs_err"],
-         "ms": per_variant[v]["ms"], "plain_ms": per_variant[v]["plain_ms"],
+         "ms": per_variant[v]["ms"], "event_ms": per_variant[v]["event_ms"],
+         "plain_ms": per_variant[v]["plain_ms"],
          "bound_ms": per_variant[v]["bound_ms"],
          "bound_by": max(per_variant[v]["bound_by"].items(),
                          key=lambda kv: kv[1])[0],
@@ -914,6 +1361,11 @@ def main() -> int:
         for v in REPLACES]}
     for k in s_kernels:
         report["kernels"].append(dict(k, launches=s_launches[k["name"]]))
+    path_of = {"pyr_down": "A", "local_warp": "B",
+               "fused_lk_level_precomputed": "B"}
+    for k in p_kernels:
+        report["kernels"].append(dict(
+            k, launches=p_launches[path_of[k["name"]]][k["name"]]))
     print(json.dumps(report))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
 The ``.cu`` sources under ``csrc/`` are compiled with ``nvcc`` at first use
-into ``lk_tpu_torch/_build/<key>/``, ``key`` being a hash of the sources and
-the flags: one ``nvcc`` per source, all started together, then one link into
+into ``lk_tpu_torch/_build/<key>/``, ``key`` being a hash of the sources, the
+headers they share and the flags: one ``nvcc`` per source, all started
+together, then one link into
 a shared library with a plain C interface that ``ctypes`` loads.  A later
 process with the same sources loads the library it finds.  Nothing is
 downloaded; ``nvcc`` comes from ``CUDA_HOME``, ``PATH`` or the toolkit's
@@ -22,7 +23,9 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
 SOURCES = ("csrc/fused_lk_level.cu", "csrc/finish.cu",
-           "csrc/window_gather.cu")
+           "csrc/window_gather.cu", "csrc/pyr_down.cu", "csrc/local_warp.cu",
+           "csrc/fused_level_pre.cu")
+HEADERS = ("csrc/warp_tile.cuh",)
 # sm_90a: Hopper.  --fmad=false: no FMA contraction (see the .cu header).
 # -Xptxas -v: registers, shared memory and spills of each kernel, kept in
 # the build log.
@@ -52,7 +55,7 @@ def _nvcc() -> str:
 
 def build_dir() -> Path:
     h = hashlib.sha256()
-    for s in SOURCES:
+    for s in SOURCES + HEADERS:
         h.update(s.encode())
         h.update((_PKG / s).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -108,11 +111,11 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            from lk_tpu_torch.flow import lk_kernels, sparse
-            from lk_tpu_torch.ops import finish
+            from lk_tpu_torch.flow import lk_kernels, sparse, warp_kernels
+            from lk_tpu_torch.ops import blur, finish
 
             lib = ctypes.CDLL(str(_compile(build_dir())))
-            for module in (lk_kernels, finish, sparse):
+            for module in (lk_kernels, finish, sparse, blur, warp_kernels):
                 module.bind(lib)
             _lib = lib
     return _lib

@@ -17,11 +17,11 @@
 // the flow at the tile centre (twice the dominant coarse tap on coarse-in
 // levels); the tile's 8-pixel halo is warped with that same reference, so a
 // thread block never straddles two reference tiles.  Separable two-tap warp
-// (vertical pass first, residual clamped to +-local), exact Scharr of
-// edge-replicated prev, 15x15 box sums, min-eig gate, 2x2 solve.  Flow on the
-// halo: the current flow inside the level, the edge-replicated initial flow
-// outside it; on coarse-in levels upsample2_linear's taps (x2) of the
-// edge-clamped coarse planes.  All borders are read by clamped address.
+// (warp_tile.cuh: vertical pass first, residual clamped to +-local), exact
+// Scharr of edge-replicated prev, 15x15 box sums, min-eig gate, 2x2 solve.
+// Flow on the halo: the current flow inside the level, the edge-replicated
+// initial flow outside it; on coarse-in levels upsample2_linear's taps (x2)
+// of the edge-clamped coarse planes.  All borders are read by clamped address.
 //
 // Rounding: built with --fmad=false (no FMA contraction), so every product
 // rounds before it is added, as in the plain version's eager elementwise ops;
@@ -31,10 +31,11 @@
 //
 // What bounds it on this card (1080p level 0, 1088x2048, one pair): the
 // compulsory traffic is ~51 MB (prev, next, coarse flow in; flow, min_eig,
-// valid out), ~15 us at 3.35 TB/s; the arithmetic is ~450 f32 operations per
-// output pixel (five 15x15 box sums ~300, warp ~100, Scharr and solve), ~1.0
-// GFLOP, ~15 us at 67 TFLOP/s.  Neither dominates; what this simple design
-// is bound by is shared-memory traffic and latency: each block loads a 48x48
+// valid out), ~15 us at 3.35 TB/s; the arithmetic is 236 f32 operations per
+// output pixel per iteration (five 15x15 box sums 140, gate and solve 38,
+// warp 32, Scharr 16, residual and products 10), ~0.53 GFLOP, ~7.8 us at
+// 67 TFLOP/s: the bound is the bytes.  What this simple design is bound by
+// is shared-memory traffic and latency: each block loads a 48x48
 // extended region (2.25x its 32x32 outputs) and a 59x59 warp window, and the
 // box sums read shared memory ~600 times per output pixel.  The design keeps
 // every intermediate (gradients, flow, warp, residual, column sums) in
@@ -44,7 +45,12 @@
 
 #include <cuda_runtime.h>
 
+#include "warp_tile.cuh"
+
 namespace {
+
+using lkwarp::clampf;
+using lkwarp::clampi;
 
 constexpr int HALO = 8;
 constexpr int BH = 32;                 // output rows per block
@@ -71,14 +77,6 @@ struct Params {
   int coarse, local, win_k;
   float max_disp, eig_thr;
 };
-
-__device__ __forceinline__ int clampi(int v, int lo, int hi) {
-  return min(max(v, lo), hi);
-}
-
-__device__ __forceinline__ float clampf(float v, float lo, float hi) {
-  return fminf(fmaxf(v, lo), hi);
-}
 
 // Flow component c of pair k at frame position (y, x), which may lie
 // outside the level.
@@ -155,8 +153,8 @@ fused_lk_level_kernel(Params p) {
     rfx = c0[at];
     rfy = c0[(size_t)H * W + at];
   }
-  const int wy0 = Y0 + (int)rintf(clampf(rfy, -D, D)) - L;   // window origin
-  const int wx0 = X0 + (int)rintf(clampf(rfx, -D, D)) - L;
+  const int wy0 = lkwarp::window_origin(Y0, rfy, D, L);
+  const int wx0 = lkwarp::window_origin(X0, rfx, D, L);
 
   // --- loads: prev (+1 Scharr border), flow, warp window --------------------
   for (int i = tid; i < (EH + 2) * PS; i += NT) {
@@ -172,12 +170,7 @@ fused_lk_level_kernel(Params p) {
     sFY[i] = flow_at(p, k, 1, y, x);
     if (c < EW) sFX[r * EW + c] = flow_at(p, k, 0, y, x);
   }
-  for (int i = tid; i < WR * FW; i += NT) {
-    const int r = i / FW, c = i % FW;
-    const int y = clampi(wy0 + rb + r, 0, H - 1);
-    const int x = clampi(wx0 + cb + c, 0, W - 1);
-    sWin[i] = next[(size_t)y * W + x];
-  }
+  lkwarp::load_window(sWin, next, WR, FW, wy0 + rb, wx0 + cb, H, W);
   __syncthreads();
 
   // --- Scharr (exact form) and the vertical warp pass ----------------------
@@ -194,13 +187,8 @@ fused_lk_level_kernel(Params p) {
   const float two_l = 2.0f * L;
   for (int i = tid; i < EH * FW; i += NT) {
     const int r = i / FW, c = i % FW;
-    const float gy = clampf((float)(rb + r + Y0) + clampf(sFY[i], -D, D),
-                            0.0f, (float)(H - 1));
-    const float rel = clampf((gy - (float)wy0) - (float)(rb + r), 0.0f, two_l);
-    const float di = floorf(rel);
-    const float f = rel - di;
-    const float* col = sWin + (r + (int)di) * FW + c;
-    sV[i] = (1.0f - f) * col[0] + f * col[FW];
+    sV[i] = lkwarp::tent(sWin + r * FW + c, FW, sFY[i], rb + r, Y0, wy0, D,
+                         two_l, H);
   }
   __syncthreads();
 
@@ -208,13 +196,8 @@ fused_lk_level_kernel(Params p) {
   for (int i = tid; i < EH * EW; i += NT) {
     const int r = i / EW, c = i % EW;
     const float fx = sFX[i], fy = sFY[r * FW + c];
-    const float gx = clampf((float)(cb + c + X0) + clampf(fx, -D, D),
-                            0.0f, (float)(W - 1));
-    const float rel = clampf((gx - (float)wx0) - (float)(cb + c), 0.0f, two_l);
-    const float dj = floorf(rel);
-    const float g = rel - dj;
-    const float* v = sV + r * FW + c + (int)dj;
-    const float jw = (1.0f - g) * v[0] + g * v[1];
+    const float jw = lkwarp::tent(sV + r * FW + c, 1, fx, cb + c, X0, wx0, D,
+                                  two_l, W);
     const float pw = sP[(r + 1) * PS + c + 1];
     sR[i] = (jw - pw) - (sIX[i] * fx + sIY[i] * fy);
   }

@@ -1,0 +1,73 @@
+// warp_tile.cuh — the tile-reference separable warp that the dense LK kernels
+// share (fused_lk_level.cu, fused_level_pre.cu, local_warp.cu).
+//
+// Counterpart of the Pallas bodies _warp_start / _warp_finish / _tent_gather
+// of lk_tpu/flow/pallas_kernels.py, and of the plain version
+// lk_tpu_torch/flow/lk_kernels.py warp_region.  A reference region (a tile,
+// or a tile with its halo) whose origin is (Y0, X0) warps `next` by its flow
+// around one reference displacement, d0 = round_half_even(clip(ref, +-D)):
+//
+//   window origin   wy0 = Y0 + d0y - L   (wx0 likewise), edge-clamped reads;
+//   vertical pass   gy  = clip((row + Y0) + clip(fy, +-D), 0, H-1),
+//                   rel = clip((gy - wy0) - row, 0, 2L),
+//                   v   = (1 - f) * win[row + di] + f * win[row + di + 1],
+//                   di = floor(rel), f = rel - di; the window column j takes
+//                   the fy of region column min(j, region width - 1);
+//   horizontal pass the same along columns on v, with the pixel's own fx.
+//
+// `row` is the pixel's index in the region (the Pallas kernel's row iota),
+// so a residual beyond +-L of the reference clamps.  Every operation is f32
+// in this order; the kernels are built with --fmad=false, so the products
+// round as in the plain version.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace lkwarp {
+
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return min(max(v, lo), hi);
+}
+
+__device__ __forceinline__ float clampf(float v, float lo, float hi) {
+  return fminf(fmaxf(v, lo), hi);
+}
+
+// Row (column) origin of a region's warp window: region origin + rounded,
+// clipped reference displacement - L.
+__device__ __forceinline__ int window_origin(int region0, float ref, float D,
+                                             int L) {
+  return region0 + (int)rintf(clampf(ref, -D, D)) - L;
+}
+
+// Stage rows x cols of plane (H, W) from (oy, ox) into s (row stride cols),
+// edge-clamped, with every thread of the block.
+__device__ __forceinline__ void load_window(float* s, const float* plane,
+                                            int rows, int cols, int oy, int ox,
+                                            int H, int W) {
+  for (int i = threadIdx.x; i < rows * cols; i += blockDim.x) {
+    const int r = i / cols;
+    const int c = i - r * cols;
+    s[i] = plane[(size_t)clampi(oy + r, 0, H - 1) * W + clampi(ox + c, 0, W - 1)];
+  }
+}
+
+// One two-tap tent along an axis.  p: the window element at the pixel's own
+// index (row of the vertical pass, column of the horizontal), stride: the
+// window's step along the axis; d: the pixel's flow component; pos: its index
+// in the region; origin: the region origin; worigin: the window origin; n:
+// the level's extent along the axis.
+__device__ __forceinline__ float tent(const float* p, int stride, float d,
+                                      int pos, int origin, int worigin,
+                                      float D, float two_l, int n) {
+  const float g = clampf((float)(pos + origin) + clampf(d, -D, D), 0.0f,
+                         (float)(n - 1));
+  const float rel = clampf((g - (float)worigin) - (float)pos, 0.0f, two_l);
+  const float di = floorf(rel);
+  const float f = rel - di;
+  const float* q = p + (int)di * stride;
+  return (1.0f - f) * q[0] + f * q[stride];
+}
+
+}  // namespace lkwarp

@@ -2,21 +2,34 @@
 
 Counterpart of ``lk_tpu/flow/dense.py`` with the same names, the same
 configs (the port's copy, ``lk_tpu_torch.config``) and the same numerics
-contract: the
-window-coherent inverse-compositional formulation, one fused level
-(``lk_kernels.fused_lk_level``) per pyramid level, coarse-to-fine.
+contract: the window-coherent inverse-compositional formulation,
+coarse-to-fine.  A level runs one of three forms, chosen per level as
+``lk_tpu`` chooses them:
+
+* the grads-fused level (``use_pallas_fused`` or ``use_pallas_warp`` with
+  ``fused_grads_in_kernel``): ``lk_kernels.fused_lk_level``;
+* the precomputed-A level (``fused_grads_in_kernel=False`` at levels that
+  fuse): Scharr, A and the gate in plain PyTorch on the tile-padded level,
+  then ``warp_kernels.fused_lk_level_precomputed``;
+* the masked-iteration level (no fused kernel): the same prologue, then
+  ``outer_iters`` rounds of warp, residual, box sums and solve with the
+  per-pixel eps freeze, the warp being ``warp_kernels.local_warp`` under
+  ``use_pallas_warp`` and ``ops.warp.shift_select_warp`` otherwise (the
+  default config's XLA level: unpadded, plain PyTorch throughout).
 
 Functions that take tensors run where their inputs are (the tensor's
 device is the caller's choice): CPU tensors through the plain PyTorch
-level, CUDA tensors through the hand-written CUDA kernel.  The one entry
-point that takes numpy, ``levels_from_numpy``, puts its tensors on the card
+versions, CUDA tensors through the hand-written CUDA kernels (the levels
+above and the pyramid's ``pyr_down``).  The one entry point that takes
+numpy, ``levels_from_numpy``, puts its tensors on the card
 (``device="cuda"``) unless the caller names another device.
 
 What the TPU layout needed and this port drops: the unified pad layouts
-(borders are read by clamped address, so levels stay unpadded) and the
-bf16 trades (``scharr_mxu``, ``fast_pyramid``, the MXU box sums): the port
-always computes the exact f32 form.  Branches not ported yet raise
-``NotImplementedError`` naming the ROADMAP.md item that will port them.
+(borders are read by clamped address, so levels stay unpadded), the
+alignment gate of the pyrDown pair kernel (the port's takes any shape) and
+the bf16 trades (``scharr_mxu``, ``fast_pyramid``, the MXU box sums): the
+port always computes the exact f32 form.  ``padded_build``,
+``bf16_box_sums`` and ``bf16_warp_window`` are not ported and raise.
 """
 
 from __future__ import annotations
@@ -29,21 +42,18 @@ import torch
 from lk_tpu_torch.config import DenseLKConfig, LKConfig
 from lk_tpu_torch.flow.lk_kernels import (fused_lk_level, pick_tile_w,
                                           HALO)
+from lk_tpu_torch.flow.warp_kernels import (fused_lk_level_precomputed,
+                                            local_warp)
 from lk_tpu_torch.ops.blur import pyr_down
+from lk_tpu_torch.ops.boxfilter import box_sum
+from lk_tpu_torch.ops.gradients import scharr_derivatives
 from lk_tpu_torch.ops.resize import upsample2_linear
+from lk_tpu_torch.ops.warp import shift_select_warp
 
-_XLA_LEVEL = ("the XLA shift-select level path (no use_pallas_* flag) is "
-              "not ported: ROADMAP.md Queue 1, Slice A #3 (XLA-path level)")
-_PRECOMPUTED_A = ("fused_grads_in_kernel=False (the warp-only and precomputed-A "
-                  "levels: pallas_local_warp, make_fused_lk_level) is not "
-                  "ported: ROADMAP.md Queue 2 #8-#9")
-_PALLAS_PYR = ("pallas_pyramid=True in the per-pair dense_pyramidal_lk needs "
-               "the pyrDown kernel: ROADMAP.md Queue 1, Slice A #2 "
-               "(Queue 2 #4)")
-_PADDED_BUILD = ("padded_build is not ported: ROADMAP.md 'Left out of the "
-                 "port'")
-_BATCHED = ("dense_pyramidal_lk_batched is not ported: ROADMAP.md Queue 1, "
-            "Slice A #4")
+_LEFT_OUT = ("{} is not ported: ROADMAP.md 'Left out of the port'")
+# OpenCV's fixed-point A is ours / 1024: its default minEigThreshold maps to
+# min_eig_threshold * 1024 on the normalized-gradient scale.
+_MIN_EIG_SCALE = 1024.0
 
 def _effective_cfg(
     cfg: LKConfig, dense_cfg: DenseLKConfig,
@@ -136,22 +146,93 @@ def dense_lk_level(
     coarse_planes_init: Optional[torch.Tensor] = None,
     planes_out: bool = False,
 ) -> DenseFlowResult:
-    """One pyramid level of window-coherent dense LK (the grads-fused form).
+    """One pyramid level of window-coherent dense LK, in the form the config
+    picks (module docstring).
 
     prev/next_: (H, W).  flow_init: (H, W, 2), or None with
     coarse_planes_init (2, H/2, W/2) — the coarser level's flow planes,
-    upsampled inside the level.  planes_out returns flow as (2, H, W).
-    The level is edge-padded to its tile geometry and cropped after."""
-    if not (dense_cfg.use_pallas_warp or dense_cfg.use_pallas_fused):
-        raise NotImplementedError(_XLA_LEVEL)
-    if not (dense_cfg.use_pallas_fused and dense_cfg.fused_grads_in_kernel):
-        raise NotImplementedError(_PRECOMPUTED_A)
-    win_w, win_h = cfg.win_size
-    if win_w != win_h:
-        raise ValueError("the fused level needs a square window")
+    upsampled inside the grads-fused level.  planes_out returns flow as
+    (2, H, W) (grads-fused level only).  Under ``use_pallas_*`` the level
+    is edge-padded to its tile geometry and cropped after."""
     r_disp = dense_cfg.max_disp if max_disp is None else max_disp
     prev = prev.to(torch.float32)
     next_ = next_.to(torch.float32)
+    h0, w0 = prev.shape[-2:]
+    if dense_cfg.use_pallas_fused and dense_cfg.fused_grads_in_kernel:
+        return _grads_fused_level(prev, next_, flow_init, cfg, dense_cfg,
+                                  r_disp, coarse_planes_init, planes_out)
+    if coarse_planes_init is not None or planes_out:
+        raise ValueError("plane-layout I/O needs the grads-fused level")
+    if dense_cfg.bf16_box_sums or dense_cfg.bf16_warp_window:
+        raise NotImplementedError(_LEFT_OUT.format(
+            "bf16_box_sums / bf16_warp_window"))
+    flow = flow_init.to(torch.float32).movedim(-1, 0)
+    tiled = dense_cfg.use_pallas_warp or dense_cfg.use_pallas_fused
+    if tiled:
+        _, th, tw, hp, wp = pallas_level_geometry(h0, w0, dense_cfg)
+        prev, next_, flow = (_edge_pad(x, hp, wp)
+                             for x in (prev, next_, flow))
+
+    # the fused kernel's b sums see edge-replicated halos, so its A does too
+    win = cfg.win_size
+    ix, iy, a11, a12, a22, min_eig, valid, inv_det = level_prologue(
+        prev, cfg, "edge" if dense_cfg.use_pallas_fused else "zero")
+
+    if dense_cfg.use_pallas_fused:
+        flow = fused_lk_level_precomputed(
+            next_, prev, ix, iy, a11, a12, a22, inv_det, flow.contiguous(),
+            n_iters=dense_cfg.outer_iters, max_disp=r_disp, tile_h=th,
+            tile_w=tw, local=dense_cfg.warp_local, win_k=win[1])
+    else:
+        bound = float(r_disp)
+        eps2 = cfg.eps * cfg.eps
+        active = torch.ones_like(valid)
+        for _ in range(dense_cfg.outer_iters):
+            if dense_cfg.use_pallas_warp:
+                jw = local_warp(next_, flow, max_disp=r_disp, tile_h=th,
+                                tile_w=tw, local=dense_cfg.warp_local)
+            else:
+                jw = shift_select_warp(next_, flow.movedim(0, -1),
+                                       (r_disp, r_disp))
+            fx, fy = flow[0], flow[1]
+            r = (jw - prev) - (ix * fx + iy * fy)
+            b1 = box_sum(ix * r, win) + a11 * fx + a12 * fy
+            b2 = box_sum(iy * r, win) + a12 * fx + a22 * fy
+            du = (a12 * b2 - a22 * b1) * inv_det
+            dv = (a12 * b1 - a11 * b2) * inv_det
+            flow = torch.where(active & valid, flow + torch.stack([du, dv]),
+                               flow).clamp(-bound, bound)
+            active = active & (du * du + dv * dv > eps2)
+    return DenseFlowResult(flow=flow[:, :h0, :w0].movedim(0, -1),
+                           min_eig=min_eig[:h0, :w0], valid=valid[:h0, :w0])
+
+
+def level_prologue(prev: torch.Tensor, cfg: LKConfig, border: str):
+    """lk_tpu's XLA prologue of a level: Scharr (ix, iy) of prev, the
+    structure tensor (a11, a12, a22) as box sums with ``border``, min_eig
+    (over the window area), the gate ``valid`` and ``inv_det`` (0 where the
+    gate fails)."""
+    win = cfg.win_size
+    ix, iy = scharr_derivatives(prev)
+    a11 = box_sum(ix * ix, win, border=border)
+    a12 = box_sum(ix * iy, win, border=border)
+    a22 = box_sum(iy * iy, win, border=border)
+    det = a11 * a22 - a12 * a12
+    t = a11 - a22
+    min_eig = ((a22 + a11) - torch.sqrt(t * t + 4.0 * a12 * a12)) / (
+        2.0 * float(win[0] * win[1]))
+    valid = ((min_eig >= cfg.min_eig_threshold * _MIN_EIG_SCALE)
+             & (det > 1e-7))
+    inv_det = torch.where(valid, 1.0 / det, 0.0)
+    return ix, iy, a11, a12, a22, min_eig, valid, inv_det
+
+
+def _grads_fused_level(prev, next_, flow_init, cfg, dense_cfg, r_disp,
+                       coarse_planes_init, planes_out) -> DenseFlowResult:
+    """The grads-fused level: ``fused_lk_level`` on the tile-padded level."""
+    win_w, win_h = cfg.win_size
+    if win_w != win_h:
+        raise ValueError("the fused level needs a square window")
     h0, w0 = prev.shape[-2:]
     grads_resident, th, tw, hp, wp = pallas_level_geometry(h0, w0, dense_cfg)
     if grads_resident and coarse_planes_init is not None:
@@ -175,10 +256,37 @@ def dense_lk_level(
         min_eig=min_eig[0, :h0, :w0], valid=valid[0, :h0, :w0])
 
 
-def dense_pyramidal_lk_batched(prev, next_, cfg=LKConfig(),
-                               dense_cfg=DenseLKConfig()):
-    """Batched dense flow via row-folding — not ported yet."""
-    raise NotImplementedError(_BATCHED)
+def dense_pyramidal_lk_batched(
+    prev: torch.Tensor,
+    next_: torch.Tensor,
+    cfg: LKConfig = LKConfig(),
+    dense_cfg: DenseLKConfig = DenseLKConfig(),
+) -> torch.Tensor:
+    """Batched dense flow via row-folding: (B, H, W) pairs -> (B, H, W, 2).
+
+    As ``lk_tpu``: the batch is folded into the row axis with per-frame
+    edge-replicated guard bands wide enough that no level's stencil (warp
+    displacement + window + gradient) crosses a frame seam, and the folded
+    frame runs ``dense_pyramidal_lk``.  Box sums near a frame's top and
+    bottom see replicated rows instead of the unbatched path's borders."""
+    b, h, w = prev.shape
+    cfg = _effective_cfg(cfg, dense_cfg, (h, w))
+    top = cfg.max_level
+    win_h = cfg.win_size[1]
+    need = max((dense_cfg.level_disp(lv) + win_h // 2 + 4) << lv
+               for lv in range(top + 1))
+    mult = 1 << top
+    # per-frame rows a multiple of 2**top, so decimation keeps frames aligned
+    h_pad = -(-h // mult) * mult
+    g = -(-need // mult) * mult
+    rows = torch.arange(-g, h_pad + g, device=prev.device).clamp(0, h - 1)
+
+    def fold(x):
+        return x.index_select(1, rows).reshape(b * (h_pad + 2 * g), w)
+
+    folded = dense_pyramidal_lk(fold(prev), fold(next_), cfg,
+                                dense_cfg=dense_cfg)
+    return folded.flow.reshape(b, h_pad + 2 * g, w, 2)[:, g:g + h]
 
 
 def _upsample_flow(planes: torch.Tensor, dst_h: int, dst_w: int
@@ -193,14 +301,19 @@ def dense_pyramidal_lk(
     init_flow: Optional[torch.Tensor] = None,
     dense_cfg: DenseLKConfig = DenseLKConfig(),
 ) -> DenseFlowResult:
-    """Coarse-to-fine dense LK over one (H, W) pair; returns level-0 flow."""
-    if dense_cfg.pallas_pyramid:
-        raise NotImplementedError(_PALLAS_PYR)
+    """Coarse-to-fine dense LK over one (H, W) pair; returns level-0 flow.
+
+    The two pyramids are built as one (2, H, W) stack, so each level is one
+    ``pyr_down`` call (one kernel launch on the card) for the pair; under
+    ``pallas_pyramid`` the base is first edge-padded to
+    ``pyramid_base_geometry``."""
     cfg = _effective_cfg(cfg, dense_cfg, prev.shape[-2:])
     h_true, w_true = prev.shape[-2:]
+    pair = build_frame_levels(
+        torch.stack([prev.to(torch.float32), next_.to(torch.float32)]),
+        cfg, dense_cfg)
     return dense_flow_from_levels(
-        build_frame_levels(prev, cfg, dense_cfg),
-        build_frame_levels(next_, cfg, dense_cfg), cfg, dense_cfg,
+        [lv[0] for lv in pair], [lv[1] for lv in pair], cfg, dense_cfg,
         (h_true, w_true), init_flow=init_flow)
 
 
@@ -240,7 +353,7 @@ def build_frame_levels(
     """Pyramid levels of a frame, or of a (N, H, W) stack of frames: the
     base edge-padded to ``pyramid_base_geometry``, then ``pyr_down``."""
     if dense_cfg.padded_build:
-        raise NotImplementedError(_PADDED_BUILD)
+        raise NotImplementedError(_LEFT_OUT.format("padded_build"))
     cfg = _effective_cfg(cfg, dense_cfg, frame.shape[-2:])
     h_true, w_true = frame.shape[-2:]
     hp, wp = pyramid_base_geometry(h_true, w_true, cfg, dense_cfg)
@@ -475,7 +588,7 @@ def dense_pyramidal_lk_video(
         raise ValueError(f"frames must be (T >= 2, H, W), got "
                          f"{tuple(frames.shape)}")
     if dense_cfg.padded_build:
-        raise NotImplementedError(_PADDED_BUILD)
+        raise NotImplementedError(_LEFT_OUT.format("padded_build"))
     h_true, w_true = frames.shape[-2:]
     hw = (h_true, w_true)
     cfg = _effective_cfg(cfg, dense_cfg, hw)
@@ -551,6 +664,28 @@ def dense_pyramidal_lk_multistream(
                    for fr in frames])
 
 
+def level_configs(dense_cfg: DenseLKConfig, top: int) -> list:
+    """The per-level configs of the per-call chain, level 0 first: each
+    level's iterations and warp range, and whether it fuses (levels of at
+    least ``fused_from_iters`` iterations switch to the fused kernel under
+    ``use_pallas_warp``); only the top level may be resident."""
+    cfgs = []
+    for level in range(top + 1):
+        n_it = dense_cfg.level_iters(level)
+        fuse = dense_cfg.use_pallas_fused or (
+            dense_cfg.use_pallas_warp
+            and (dense_cfg.fused_grads_in_kernel
+                 or n_it >= dense_cfg.fused_from_iters)
+        )
+        cfgs.append(dataclasses.replace(
+            dense_cfg, outer_iters=n_it, use_pallas_fused=fuse,
+            warp_local=dense_cfg.level_local(level),
+            fused_resident_max_h=(dense_cfg.fused_resident_max_h
+                                  if level == top else 0),
+        ))
+    return cfgs
+
+
 def dense_flow_from_levels(
     prev_levels,
     next_levels,
@@ -578,20 +713,7 @@ def dense_flow_from_levels(
         if tuple(flow.shape[:2]) != (h_top, w_top):
             flow = _edge_pad(flow.movedim(-1, 0), h_top, w_top).movedim(0, -1)
 
-    level_cfgs = []
-    for level in range(top + 1):
-        n_it = dense_cfg.level_iters(level)
-        fuse = dense_cfg.use_pallas_fused or (
-            dense_cfg.use_pallas_warp
-            and (dense_cfg.fused_grads_in_kernel
-                 or n_it >= dense_cfg.fused_from_iters)
-        )
-        level_cfgs.append(dataclasses.replace(
-            dense_cfg, outer_iters=n_it, use_pallas_fused=fuse,
-            warp_local=dense_cfg.level_local(level),
-            fused_resident_max_h=(dense_cfg.fused_resident_max_h
-                                  if level == top else 0),
-        ))
+    level_cfgs = level_configs(dense_cfg, top)
 
     def _grads_path(level: int) -> bool:
         c = level_cfgs[level]

@@ -286,10 +286,13 @@ def _coarse_taps(pos: torch.Tensor, n: int):
     return lo.clamp(0, n - 1), (lo + 1).clamp(0, n - 1), w_lo, w_hi
 
 
-def _flow_planes(cur, init, coarse_in, ys, xs, h, w):
+def _flow_planes(cur, init, coarse_in, ys, xs, h, w, spill=0):
     """(K, 2, len(ys), len(xs)) flow at frame positions ys x xs (rule of
     the module docstring: current flow inside the level, initial flow
-    edge-replicated outside; or the x2 coarse upsample)."""
+    edge-replicated outside; or the x2 coarse upsample).  ``spill`` > 0
+    also gives the first ``spill`` columns right of the level, in the
+    level's rows, the current flow's edge column (the precomputed-A
+    level's right halo, flow/warp_kernels.py)."""
     if coarse_in:
         ch, cw = init.shape[-2:]
         ylo, yhi, wly, why = _coarse_taps(ys, ch)
@@ -301,7 +304,7 @@ def _flow_planes(cur, init, coarse_in, ys, xs, h, w):
                 + (2.0 * why)[:, None] * t_hi)
     yc, xc = ys.clamp(0, h - 1), xs.clamp(0, w - 1)
     inside = (((ys >= 0) & (ys < h))[:, None]
-              & ((xs >= 0) & (xs < w))[None, :])
+              & ((xs >= 0) & (xs < w + spill))[None, :])
     return torch.where(inside, cur[:, :, yc][..., xc],
                        init[:, :, yc][..., xc])
 
@@ -318,6 +321,51 @@ def _box(q: torch.Tensor, th: int, tw: int, win_k: int) -> torch.Tensor:
     return o
 
 
+def warp_region(nxt, fx, fyw, y0, x0, ref, bound, local):
+    """The tile-reference separable warp of a region, all K pairs (the plain
+    form of csrc/warp_tile.cuh and of the Pallas _warp_core).
+
+    nxt: (K, H, W) level.  The region is fx.shape[-2:] = (rh, rw) pixels
+    from level position (y0, x0); fx: (K, rh, rw) flow x on it; fyw: (K, rh,
+    rw + 2*local + 1) flow y on it, column j taken at region column
+    min(j, rw - 1) (the vertical pass runs on the window's extra columns
+    with the edge column's dy); ref: (K, 2) reference flow.  Returns the
+    warped region (K, rh, rw)."""
+    k, h, w = nxt.shape
+    rh, rw = fx.shape[-2:]
+    dev = nxt.device
+    wide = rw + 2 * local + 1                 # columns the vertical pass makes
+    kk = torch.arange(k, device=dev)
+    d0 = torch.round(ref.clamp(-bound, bound)).to(torch.int64)
+    wy0 = y0 + d0[:, 1] - local               # window origin, per pair
+    wx0 = x0 + d0[:, 0] - local
+
+    # window of next, edge-clamped
+    wr = (wy0[:, None] + torch.arange(rh + 2 * local + 1, device=dev)
+          ).clamp(0, h - 1)
+    wc = (wx0[:, None] + torch.arange(wide, device=dev)).clamp(0, w - 1)
+    win = nxt[kk[:, None, None], wr[:, :, None], wc[:, None, :]]
+
+    two_l = 2.0 * local
+    rows_f = torch.arange(rh, device=dev, dtype=torch.float32)[:, None]
+    gy = ((rows_f + y0) + fyw.clamp(-bound, bound)).clamp(0.0, h - 1.0)
+    rel = ((gy - wy0.to(torch.float32)[:, None, None]) - rows_f
+           ).clamp(0.0, two_l)
+    di = torch.floor(rel)
+    fr = rel - di
+    idx = di.to(torch.int64) + torch.arange(rh, device=dev)[:, None]
+    vert = (1.0 - fr) * win.gather(1, idx) + fr * win.gather(1, idx + 1)
+
+    cols_f = torch.arange(rw, device=dev, dtype=torch.float32)[None, :]
+    gx = ((cols_f + x0) + fx.clamp(-bound, bound)).clamp(0.0, w - 1.0)
+    rel = ((gx - wx0.to(torch.float32)[:, None, None]) - cols_f
+           ).clamp(0.0, two_l)
+    dj = torch.floor(rel)
+    fr = rel - dj
+    jdx = dj.to(torch.int64) + torch.arange(rw, device=dev)[None, :]
+    return (1.0 - fr) * vert.gather(2, jdx) + fr * vert.gather(2, jdx + 1)
+
+
 def _tile_step(prev, nxt, cur, init, coarse_in, ty0, tx0, th, tw, bound,
                local, win_k, thr):
     """One IC iteration of the reference tile at (ty0, tx0), all K pairs."""
@@ -326,7 +374,6 @@ def _tile_step(prev, nxt, cur, init, coarse_in, ty0, tx0, th, tw, bound,
     eth, etw = th + 2 * HALO, tw + 2 * HALO
     y0, x0 = ty0 - HALO, tx0 - HALO           # extended-region origin
     wide = etw + 2 * local + 1                # columns the vertical pass makes
-    kk = torch.arange(k, device=dev)
 
     # prev on the extended region plus the Scharr border, edge-replicated
     ry = torch.arange(y0 - 1, y0 + eth + 1, device=dev).clamp(0, h - 1)
@@ -357,34 +404,7 @@ def _tile_step(prev, nxt, cur, init, coarse_in, ty0, tx0, th, tw, bound,
         ref = 2.0 * init[:, :, cy, cx]
     else:
         ref = cur[:, :, y0 + eth // 2, x0 + etw // 2]
-    d0 = torch.round(ref.clamp(-bound, bound)).to(torch.int64)
-    wy0 = y0 + d0[:, 1] - local               # window origin, per pair
-    wx0 = x0 + d0[:, 0] - local
-
-    # window of next, edge-clamped
-    wr = (wy0[:, None] + torch.arange(eth + 2 * local + 1, device=dev)
-          ).clamp(0, h - 1)
-    wc = (wx0[:, None] + torch.arange(wide, device=dev)).clamp(0, w - 1)
-    win = nxt[kk[:, None, None], wr[:, :, None], wc[:, None, :]]
-
-    two_l = 2.0 * local
-    rows_f = torch.arange(eth, device=dev, dtype=torch.float32)[:, None]
-    gy = ((rows_f + y0) + fyw.clamp(-bound, bound)).clamp(0.0, h - 1.0)
-    rel = ((gy - wy0.to(torch.float32)[:, None, None]) - rows_f
-           ).clamp(0.0, two_l)
-    di = torch.floor(rel)
-    fr = rel - di
-    idx = di.to(torch.int64) + torch.arange(eth, device=dev)[:, None]
-    vert = (1.0 - fr) * win.gather(1, idx) + fr * win.gather(1, idx + 1)
-
-    cols_f = torch.arange(etw, device=dev, dtype=torch.float32)[None, :]
-    gx = ((cols_f + x0) + fx.clamp(-bound, bound)).clamp(0.0, w - 1.0)
-    rel = ((gx - wx0.to(torch.float32)[:, None, None]) - cols_f
-           ).clamp(0.0, two_l)
-    dj = torch.floor(rel)
-    fr = rel - dj
-    jdx = dj.to(torch.int64) + torch.arange(etw, device=dev)[None, :]
-    jw = (1.0 - fr) * vert.gather(2, jdx) + fr * vert.gather(2, jdx + 1)
+    jw = warp_region(nxt, fx, fyw, y0, x0, ref, bound, local)
 
     r = (jw - pw) - (ix * fx + iy * fy)
 

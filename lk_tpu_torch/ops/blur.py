@@ -17,16 +17,32 @@ same five-term sum whatever the leading batch shape, so a chunk of frames
 decimates bit-identically to the frames one at a time — which a
 convolution library does not promise (it may choose a different algorithm
 for a batch than for one frame).
+
+``pyr_down`` dispatches on the device of its input: a CPU tensor goes to
+``pyr_down_reference`` (the plain version above), a CUDA tensor to the
+pyrDown kernel ``lk_tpu_torch/csrc/pyr_down.cu`` — one launch for all the
+leading dims' planes, bit-equal to the plain version — with no fallback
+between the two.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
 
 _GAUSS3 = (0.25, 0.5, 0.25)
 _GAUSS5 = (1 / 16, 4 / 16, 6 / 16, 4 / 16, 1 / 16)
+
+# Launches of the pyrDown kernel, and calls of the plain version.
+kernel_launches = 0
+plain_calls = 0
+
+
+def reset_counters() -> None:
+    global kernel_launches, plain_calls
+    kernel_launches = plain_calls = 0
 
 
 @functools.lru_cache(maxsize=64)
@@ -89,12 +105,55 @@ def _filter_decimate(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def pyr_down(img: torch.Tensor, fast: bool = False) -> torch.Tensor:
-    """One pyramid level down over the trailing (H, W) axes.
+    """One pyramid level down over the trailing (H, W) axes:
+    (..., H, W) -> (..., ceil(H/2), ceil(W/2)) float32.
 
     ``fast`` is accepted for signature parity with ``lk_tpu``: there it
     selects bf16-input matmuls, a TPU precision trade.  Here both forms
     are the same exact f32 arithmetic.
     """
+    if img.device.type == "cpu":
+        return pyr_down_reference(img, fast)
+    if img.device.type != "cuda":
+        raise ValueError(f"pyr_down: unsupported device {img.device}")
+    return _pyr_down_cuda(img)
+
+
+def pyr_down_reference(img: torch.Tensor, fast: bool = False) -> torch.Tensor:
+    """Plain PyTorch form of ``pyr_down`` (same signature): rows filtered
+    and decimated first, then columns."""
+    global plain_calls
     del fast
+    plain_calls += 1
     x = img.to(torch.float32)
     return _filter_decimate(_filter_decimate(x, -2), -1)
+
+
+def _pyr_down_cuda(img: torch.Tensor) -> torch.Tensor:
+    global kernel_launches
+    from lk_tpu_torch import _build
+
+    if img.ndim < 2 or img.numel() == 0:
+        raise ValueError(f"pyr_down takes (..., H, W) planes, got "
+                         f"{tuple(img.shape)}")
+    h, w = img.shape[-2:]
+    x = img.to(torch.float32).reshape(-1, h, w).contiguous()
+    n = x.shape[0]
+    out = torch.empty((n, (h + 1) // 2, (w + 1) // 2), dtype=torch.float32,
+                      device=x.device)
+    lib = _build.library()
+    rc = lib.lk_pyr_down_launch(
+        x.data_ptr(), out.data_ptr(), n, h, w,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"pyr_down kernel launch failed: CUDA error {rc} "
+                           f"({lib.lk_error_string(rc).decode()})")
+    kernel_launches += 1
+    return out.reshape(*img.shape[:-2], *out.shape[-2:])
+
+
+def bind(lib: ctypes.CDLL) -> None:
+    """Declare the C interface of ``csrc/pyr_down.cu``."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.lk_pyr_down_launch.argtypes = [p, p, i, i, i, p]
+    lib.lk_pyr_down_launch.restype = i

@@ -13,7 +13,8 @@ import torch
 
 from lk_tpu_torch.flow import lk_kernels as lk
 from lk_tpu_torch.flow import sparse
-from lk_tpu_torch.ops import finish
+from lk_tpu_torch.flow import warp_kernels as wk
+from lk_tpu_torch.ops import blur, finish
 
 THR = 1e-4
 
@@ -179,3 +180,80 @@ def test_serving_kernels_match_plain_path(cuda_device):
     for p, q in zip(kern.pipes, plain.pipes):
         assert p.csv_rows == q.csv_rows
         assert p.cross_points == q.cross_points
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 64, 128), (5, 37, 53), (3, 1, 9),
+                                   (1, 2, 2), (2, 3, 483, 861)])
+def test_pyr_down_matches_plain(cuda_device, shape):
+    """The pyrDown kernel: bit-equal to the plain version for any leading
+    dims (one launch), odd sizes and the 1-row clamp."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.random(shape, dtype=np.float32) * 255).to(
+        cuda_device)
+    blur.reset_counters()
+    got = blur.pyr_down(x)
+    assert (blur.kernel_launches, blur.plain_calls) == (1, 0)
+    want = blur.pyr_down_reference(x)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+def _zoom_flow(h, w, device, outliers=True, seed=6):
+    """A smooth zoom flow with a few outliers beyond any local range."""
+    rng = np.random.default_rng(seed)
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    flow = np.stack([(xs - w / 2) * 0.02 + 3.0, (ys - h / 2) * 0.02 - 2.0])
+    if outliers:
+        idx = rng.integers(0, h * w, 50)
+        flow.reshape(2, -1)[:, idx] += rng.uniform(-30, 30, (2, 50))
+    return torch.from_numpy(flow.astype(np.float32)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,tile,local", [((128, 768), (64, 384), 3),
+                                           ((96, 480), (32, 480), 5),
+                                           ((40, 100), (40, 50), 8)])
+def test_local_warp_matches_plain(cuda_device, hw, tile, local):
+    """The local warp kernel: bit-equal to the plain version, ragged blocks
+    and outliers beyond +-local included; one launch per call."""
+    h, w = hw
+    nxt = _frames(1, h, w, cuda_device)[0]
+    flow = _zoom_flow(h, w, cuda_device)
+    kw = dict(max_disp=16, tile_h=tile[0], tile_w=tile[1], local=local)
+    wk.reset_counters()
+    got = wk.local_warp(nxt, flow, **kw)
+    assert wk.kernel_launches["local_warp"] == 1
+    assert sum(wk.plain_calls.values()) == 0
+    want = wk.local_warp_reference(nxt, flow, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,tile,n_iters", [((136, 240), (136, 240), 6),
+                                             ((128, 512), (64, 256), 3),
+                                             ((48, 250), (16, 250), 2)])
+def test_precomputed_level_matches_plain(cuda_device, hw, tile, n_iters):
+    """The precomputed-A level kernel: bit-equal to the plain version over
+    Jacobi iterations (right-halo refresh live where tile_w % 128 != 0);
+    one launch per iteration."""
+    from lk_tpu_torch.config import LKConfig
+    from lk_tpu_torch.flow.dense import level_prologue
+
+    h, w = hw
+    frames = _frames(2, h, w, cuda_device)
+    ix, iy, a11, a12, a22, _, _, inv_det = level_prologue(
+        frames[0], LKConfig(), "edge")
+    flow = _zoom_flow(h, w, cuda_device, outliers=False) * 0.5
+    args = (frames[1], frames[0], ix, iy, a11, a12, a22, inv_det, flow)
+    kw = dict(n_iters=n_iters, max_disp=8, tile_h=tile[0], tile_w=tile[1],
+              local=5)
+    wk.reset_counters()
+    got = wk.fused_lk_level_precomputed(*args, **kw)
+    assert wk.kernel_launches["fused_lk_level_precomputed"] == n_iters
+    want = wk.fused_lk_level_precomputed_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)

@@ -1,6 +1,7 @@
 """lk_tpu_torch as a package: nothing of JAX, lk_tpu or OpenCV, its own
-configs equal to lk_tpu's, unported branches refuse, and chip_smoke.py
-refuses to run without a GPU."""
+configs equal to lk_tpu's, unported branches refuse, the entry point holds
+lk_tpu's flagship program, and chip_smoke.py refuses to run without a
+GPU."""
 
 import dataclasses
 import os
@@ -33,8 +34,10 @@ PORT_MODULES = (
     "lk_tpu_torch.ops.boxfilter", "lk_tpu_torch.ops.color",
     "lk_tpu_torch.ops.finish", "lk_tpu_torch.ops.gradients",
     "lk_tpu_torch.ops.rasterize", "lk_tpu_torch.ops.resize",
-    "lk_tpu_torch.ops.tone", "lk_tpu_torch.features.shi_tomasi",
+    "lk_tpu_torch.ops.tone", "lk_tpu_torch.ops.warp",
+    "lk_tpu_torch.features.shi_tomasi", "lk_tpu_torch.entry",
     "lk_tpu_torch.flow.dense", "lk_tpu_torch.flow.lk_kernels",
+    "lk_tpu_torch.flow.warp_kernels",
     "lk_tpu_torch.flow.sparse", "lk_tpu_torch.geometry.classify",
     "lk_tpu_torch.geometry.crosspoints", "lk_tpu_torch.geometry.flowlines",
     "lk_tpu_torch.geometry.vanishing", "lk_tpu_torch.pipeline.runner",
@@ -96,27 +99,15 @@ def _pair(h=64, w=128):
     return torch.rand((h, w), generator=g), torch.rand((h, w), generator=g)
 
 
-@pytest.mark.parametrize("case", [
-    "xla_level", "precomputed_a", "pallas_pyramid_per_pair",
-    "padded_build", "batched", "single_stream_step"])
+@pytest.mark.parametrize("case", ["padded_build", "single_stream_step"])
 def test_unported_branch_raises(case):
     prv, nxt = _pair()
     cfg = LKConfig(max_level=1)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        if case == "xla_level":
-            td.dense_pyramidal_lk(prv, nxt, cfg, dense_cfg=DenseLKConfig())
-        elif case == "precomputed_a":
-            td.dense_pyramidal_lk(prv, nxt, cfg, dense_cfg=DenseLKConfig(
-                use_pallas_fused=True, fused_grads_in_kernel=False))
-        elif case == "pallas_pyramid_per_pair":
-            td.dense_pyramidal_lk(prv, nxt, cfg, dense_cfg=DenseLKConfig(
-                use_pallas_warp=True, pallas_pyramid=True))
-        elif case == "padded_build":
+        if case == "padded_build":
             td.dense_pyramidal_lk_video(torch.stack([prv, nxt]), cfg,
                                         DenseLKConfig(use_pallas_fused=True,
                                                       padded_build=True))
-        elif case == "batched":
-            td.dense_pyramidal_lk_batched(prv[None], nxt[None], cfg)
         else:
             from lk_tpu_torch.ops.rasterize import build_roi_masks
             from lk_tpu_torch.pipeline.step import make_step
@@ -125,6 +116,27 @@ def test_unported_branch_raises(case):
             full, subs = build_roi_masks(128, 64, pcfg.roi)
             step, _, _ = make_step(pcfg, (128, 64), full, subs, device="cpu")
             step(None, prv)
+
+
+def test_entry_is_path_a():
+    """entry() holds __graft_entry__.entry()'s program: the per-pair dense
+    flow with DenseLKConfig(use_pallas_warp=True, pallas_pyramid=True) and
+    LKConfig() on rng(0) noise x 255 at 1080x1920, f32 (fn is not run)."""
+    import numpy as np
+
+    from lk_tpu_torch import entry as te
+
+    fn, (prv, nxt) = te.entry(device="cpu")
+    assert callable(fn)
+    assert te.CFG == LKConfig()
+    assert te.DENSE_CFG == DenseLKConfig(use_pallas_warp=True,
+                                         pallas_pyramid=True)
+    rng = np.random.default_rng(0)
+    for t in (prv, nxt):
+        assert t.device.type == "cpu" and t.dtype == torch.float32
+        assert tuple(t.shape) == (1080, 1920)
+        want = rng.random((1080, 1920)).astype(np.float32) * 255
+        assert np.array_equal(t.numpy(), want)
 
 
 @pytest.mark.skipif(torch.cuda.is_available(),
@@ -155,7 +167,28 @@ def test_build_key_tracks_sources():
     d = _build.build_dir()
     assert d.parent.name == "_build" and d.parent.parent.name == "lk_tpu_torch"
     assert d == _build.build_dir()
-    for src in _build.SOURCES:
+    for src in _build.SOURCES + _build.HEADERS:
         assert os.path.isfile(os.path.join(REPO, "lk_tpu_torch", src))
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     assert "--use_fast_math" not in _build.NVCC_FLAGS
+
+
+def test_build_key_tracks_headers(tmp_path, monkeypatch):
+    """Every csrc header a source includes is hashed: an edited header
+    makes a new build key (a stale library is never reused)."""
+    import glob
+    import shutil as sh
+
+    from lk_tpu_torch import _build
+
+    csrc = os.path.join(REPO, "lk_tpu_torch", "csrc")
+    included = {os.path.basename(h) for h in glob.glob(
+        os.path.join(csrc, "*.cuh"))}
+    assert included == {os.path.basename(h) for h in _build.HEADERS}
+    pkg = tmp_path / "pkg"
+    sh.copytree(csrc, pkg / "csrc")
+    monkeypatch.setattr(_build, "_PKG", pkg)
+    before = _build.build_dir()
+    with open(pkg / _build.HEADERS[0], "a") as f:
+        f.write("// edited\n")
+    assert _build.build_dir() != before

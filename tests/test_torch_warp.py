@@ -1,0 +1,203 @@
+"""The warps and the precomputed-A level: lk_tpu_torch against lk_tpu on the
+same numpy inputs (CPU; lk_tpu's Pallas makers in interpret mode, as
+tests/test_pallas_warp.py runs them).
+
+* ``ops.warp`` against ``lk_tpu.ops.warp``, op by op: bit-equal (the
+  separable warp's one non-zero select term is the two-gather lerp).
+* The plain ``local_warp`` against ``pallas_local_warp`` and the plain
+  precomputed level against ``make_fused_lk_level``: both sides f32 with the
+  same operations; the interpreted Pallas kernel runs under XLA, which may
+  contract a product into an FMA, so the bound is 1e-4 (measured ~3e-5).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import lk_tpu.flow.pallas_kernels as pk
+from lk_tpu.ops import warp as jw
+from lk_tpu.ops.boxfilter import box_sum
+from lk_tpu.ops.gradients import scharr_derivatives
+from lk_tpu_torch.flow import warp_kernels as wk
+from lk_tpu_torch.ops import warp as tw
+from torch_parity import affine_clip, interpret_pallas
+
+TOL = 1e-4    # interpreted Pallas (XLA may contract FMAs) vs plain f32
+
+
+@pytest.fixture(autouse=True)
+def _interpret(monkeypatch):
+    interpret_pallas(monkeypatch)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x, np.float32))
+
+
+def _planes(flow_hw2):
+    return _t(flow_hw2).permute(2, 0, 1).contiguous()
+
+
+@pytest.mark.parametrize("r", [1, 4, 32])
+def test_shift_select_warp_bit_equal(rng, r):
+    """Random flow up to +-6 px, clamped at +-r, edges included."""
+    h, w = 40, 72
+    img = (rng.random((h, w)) * 255).astype(np.float32)
+    flow = ((rng.random((h, w, 2)) - 0.5) * 12).astype(np.float32)
+    want = np.asarray(jw.shift_select_warp(jnp.asarray(img),
+                                           jnp.asarray(flow), (r, r)))
+    got = tw.shift_select_warp(_t(img), _t(flow), (r, r)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_warp_by_flow_and_bilinear_sample_bit_equal(rng):
+    h, w = 40, 72
+    img = (rng.random((h, w)) * 255).astype(np.float32)
+    flow = ((rng.random((h, w, 2)) - 0.5) * 30).astype(np.float32)
+    np.testing.assert_array_equal(
+        tw.warp_by_flow(_t(img), _t(flow)).numpy(),
+        np.asarray(jw.warp_by_flow(jnp.asarray(img), jnp.asarray(flow))))
+    x = ((rng.random(57) - 0.2) * w * 1.4).astype(np.float32)
+    y = ((rng.random(57) - 0.2) * h * 1.4).astype(np.float32)
+    np.testing.assert_array_equal(
+        tw.bilinear_sample(_t(img), _t(x), _t(y)).numpy(),
+        np.asarray(jw.bilinear_sample(jnp.asarray(img), jnp.asarray(x),
+                                      jnp.asarray(y))))
+
+
+def _local_warp_pair(img, flow, **kw):
+    want = np.asarray(pk.pallas_local_warp(jnp.asarray(img),
+                                           jnp.asarray(flow), **kw))
+    kw.setdefault("max_disp", 32)
+    kw.setdefault("tile_h", pk.TILE_H)
+    kw.setdefault("tile_w", pk.TILE_W)
+    kw.setdefault("local", pk.LOCAL)
+    got = wk.local_warp(_t(img), _planes(flow), **kw).numpy()
+    return want, got
+
+
+@pytest.mark.parametrize(
+    "shift", [(0.0, 0.0), (2.5, -1.5), (31.0, 14.0), (-20.5, 9.25)])
+def test_local_warp_constant_flow(rng, shift):
+    """tests/test_pallas_warp.py's constant shifts at 64x768 (tiles
+    64x384, local 6, max_disp 32)."""
+    h, w = 64, 768
+    img = (rng.random((h, w)) * 255).astype(np.float32)
+    flow = np.broadcast_to(np.float32(shift), (h, w, 2)).copy()
+    want, got = _local_warp_pair(img, flow)
+    assert np.abs(got - want).max() <= TOL
+
+
+def test_local_warp_smooth_zoom(rng):
+    """A zoom whose flow varies across a tile by more than the residual
+    range: the per-tile reference and the +-local clamp decide pixels."""
+    h, w = 64, 768
+    img = (rng.random((h, w)) * 255).astype(np.float32)
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    flow = np.stack([(xs - w / 2) * 0.02 + 3.0, (ys - h / 2) * 0.02 - 2.0],
+                    -1).astype(np.float32)
+    want, got = _local_warp_pair(img, flow)
+    assert np.abs(got - want).max() <= TOL
+
+
+def test_local_warp_residual_clamp(rng):
+    """test_pallas_warp.py's 16x384 outlier: clamped to the local range,
+    identical on both sides."""
+    h, w = 16, 384
+    img = np.tile(np.arange(w, dtype=np.float32), (h, 1))
+    flow = np.zeros((h, w, 2), np.float32)
+    flow[0, 0, 0] = 20.0
+    want, got = _local_warp_pair(img, flow, tile_h=16)
+    assert np.abs(got - want).max() <= TOL
+    assert got[0, 0] <= 17.0
+
+
+def _precomputed_inputs(rng, h, w):
+    """A blurred affine pair, a noisy initial flow, and lk_tpu's prologue
+    (Scharr, A with edge borders, gate, inv_det) computed op by op."""
+    prv, nxt = affine_clip(rng, h, w, 2)
+    init = ((rng.random((h, w, 2)) - 0.5) * 3.0).astype(np.float32)
+    ix, iy = scharr_derivatives(jnp.asarray(prv))
+    win = (15, 15)
+    a11 = box_sum(ix * ix, win, border="edge")
+    a12 = box_sum(ix * iy, win, border="edge")
+    a22 = box_sum(iy * iy, win, border="edge")
+    det = a11 * a22 - a12 * a12
+    me = (a22 + a11 - jnp.sqrt((a11 - a22) ** 2 + 4.0 * a12 * a12)) / 450.0
+    inv_det = jnp.where((me >= 0.1024) & (det > 1e-7), 1.0 / det, 0.0)
+    return prv, nxt, init, (ix, iy, a11, a12, a22, inv_det)
+
+
+def _precomputed_pair(rng, h, w, th, tw_, n_iters, disp=6, local=4):
+    prv, nxt, init, pro = _precomputed_inputs(rng, h, w)
+    run = pk.make_fused_lk_level(jnp.asarray(nxt), jnp.asarray(prv), *pro,
+                                 n_iters=n_iters, max_disp=disp, tile_h=th,
+                                 tile_w=tw_, local=local)
+    want = np.asarray(run(jnp.asarray(init)))
+
+    def port():
+        return wk.fused_lk_level_precomputed(
+            _t(nxt), _t(prv), *map(_t, pro), _planes(init), n_iters=n_iters,
+            max_disp=disp, tile_h=th, tile_w=tw_, local=local
+        ).permute(1, 2, 0).numpy()
+
+    return want, port
+
+
+@pytest.mark.parametrize("n_iters", [1, 2])
+def test_precomputed_level_matches_maker(rng, n_iters):
+    """128x384 on 64x192 tiles (2x2, seams in both axes), 1 and 2 Jacobi
+    iterations; tile_w % 128 != 0, so the right-halo refresh is live."""
+    want, port = _precomputed_pair(rng, 128, 384, 64, 192, n_iters)
+    got = port()
+    assert np.abs(got - want).max() <= TOL
+
+
+def test_precomputed_level_right_halo(rng, monkeypatch):
+    """The side the port takes (flow/warp_kernels.py docstring, ROADMAP
+    Queue 3): at the 1080p precomputed-A top-level form — one 136x240 tile,
+    6 iterations — the TPU kernel's 128-aligned writes refresh the first 8
+    columns right of the level with the current flow's edge.  The port
+    reproduces it: equal to the maker everywhere.  Keeping the initial flow
+    there instead would differ by far more than rounding in the rightmost
+    2 * HALO columns (and, over 6 iterations, further in)."""
+    want, port = _precomputed_pair(rng, 136, 240, 136, 240, 6)
+    got = port()
+    assert np.abs(got - want).max() <= TOL
+    monkeypatch.setattr(wk, "right_spill", lambda tile_w: 0)
+    kept = port()
+    band = 2 * wk.HALO
+    assert np.abs(kept[:, -band:] - want[:, -band:]).max() > 0.1
+
+
+def test_right_spill_geometry():
+    """The refreshed columns: what the 128-aligned write overruns, capped
+    at the 8-column halo."""
+    cases = {240: 8, 384: 0, 480: 8, 48: 8, 250: 6, 512: 0, 124: 4}
+    for tile_w, spill in cases.items():
+        assert wk.right_spill(tile_w) == spill, tile_w
+
+
+def test_cpu_inputs_take_the_plain_versions(rng):
+    """CPU tensors go to the plain versions and only they: the counters
+    show it, and an unsupported device raises instead of falling back."""
+    h, w = 32, 64
+    img = _t(rng.random((h, w)) * 255)
+    flow = torch.zeros((2, h, w))
+    wk.reset_counters()
+    wk.local_warp(img, flow, max_disp=4, tile_h=32, tile_w=64, local=3)
+    z = torch.zeros((h, w))
+    wk.fused_lk_level_precomputed(img, img, z, z, z, z, z, z, flow,
+                                  n_iters=2, max_disp=4, tile_h=16,
+                                  tile_w=64, local=3)
+    assert wk.plain_calls == {"local_warp": 1,
+                              "fused_lk_level_precomputed": 1}
+    assert sum(wk.kernel_launches.values()) == 0
+    meta = torch.empty((h, w), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        wk.local_warp(meta, torch.empty((2, h, w), device="meta"),
+                      max_disp=4, tile_h=32, tile_w=64, local=3)
+    with pytest.raises(ValueError, match="not a multiple of the tile"):
+        wk.local_warp(img, flow, max_disp=4, tile_h=24, tile_w=64, local=3)
