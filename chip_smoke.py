@@ -18,6 +18,10 @@ runs it.
   2. dense kernel vs plain PyTorch version at the 1080p plan shapes, K=4
      pairs (top level 136x256 with 6 iterations; L2, L1, L0 coarse-in,
      stats at L0), and chunk output vs single-pair output, bit for bit;
+     per level the kernel's device time beside its bound and whether it
+     equals the plain version bit for bit, and its time with each block
+     shape forced (same bits checked); per variant beside the time of
+     the kernel's first design;
   3. dense main path: dense_pyramidal_lk_video on two synthetic 34-frame
      1080p scenes (8 chunks of 4 pairs plus a 1-pair tail), with the
      launch counters reset just before and read just after; mean EPE vs
@@ -25,8 +29,10 @@ runs it.
   4. dense timing with CUDA events: pairs/s (output flow fields per second)
      of the chained video through the kernels and through the plain
      versions;
-  5. only with --profile: host enqueue and wall per video, and a
-     torch.profiler breakdown of its device time by kernel group;
+  5. only with --profile: host enqueue and wall per video, a
+     torch.profiler breakdown of its device time by kernel group, and the
+     fused kernel at L0 against copies built to measure its staging alone
+     and its passes alone;
   6. per-pair kernels vs plain at the paths' shapes: pyrDown on path A's
      three pair levels, a 5-frame chunk and an odd shape; the local warp
      at path B's padded L0-L2 with a zoom flow and outliers beyond +-local;
@@ -138,6 +144,12 @@ REPLACES = {
     "resident": "lk_tpu/flow/pallas_kernels.py:1207",
     "tiled": "lk_tpu/flow/pallas_kernels.py:1382",
 }
+# Each variant's device ms at the 1080p plan shapes with the kernel's
+# first design, before its redesign for Hopper (PERF.md's kernel table,
+# rows 1-4, on an NVIDIA H100 80GB HBM3 at 700 W), printed beside this
+# run's.
+FIRST_DESIGN_MS = {"resident_batched": 0.235, "batched": 1.756,
+                   "resident": 0.203, "tiled": 0.485}
 
 
 def configs():
@@ -319,7 +331,9 @@ def compare_levels(stacks, plan, cfg, timing_reps):
     pair.  Every level reads the plain version's K-pair output of the level
     above (pair 0 of it for the single-pair run), so both sides see the
     same input.  Returns per-variant {max_abs_err, ms (device), event_ms,
-    plain_ms, bound_ms, bound_by} and the per-level report rows."""
+    plain_ms, bound_ms, bound_by} and the per-level report rows (with the
+    level's bound and whether flow, min_eig and valid equal the plain
+    version's bit for bit)."""
     import torch
     from lk_tpu_torch.flow import lk_kernels as lk
 
@@ -335,6 +349,8 @@ def compare_levels(stacks, plan, cfg, timing_reps):
             fp, mp, vp = lk.fused_lk_level_reference(*args, **kw)
             torch.cuda.synchronize()
             err = float((fk - fp).abs().max())
+            equal = torch.equal(fk, fp) and (mk is None or (
+                torch.equal(mk, mp) and torch.equal(vk, vp)))
             check(bool(torch.isfinite(fk).all()), f"{name}: non-finite flow")
             check(err <= FLOW_TOL, f"{name} K={k}: max |dflow| {err} px")
             eig = flips = 0.0
@@ -358,9 +374,20 @@ def compare_levels(stacks, plan, cfg, timing_reps):
             ms = cuda_ms(lambda: lk.fused_lk_level(*args, **kw), timing_reps)
             dms = device_us(lambda: lk.fused_lk_level(*args, **kw),
                             "fused_lk_level_kernel") / 1e3
+            shape_us = []          # each block shape, forced: same bits?
+            for shape, _ in enumerate(lk.BLOCK_SHAPES):
+                def forced(shape=shape):
+                    return lk._fused_lk_level_cuda(*args, shape=shape, **kw)
+                fs, fm, fv = forced()
+                check(torch.equal(fs, fk) and (mk is None or (
+                    torch.equal(fm, mk) and torch.equal(fv, vk))),
+                      f"{name} K={k}: block shape {shape} changes the bits")
+                shape_us.append(device_us(forced, "fused_lk_level_kernel"))
             pms = cuda_ms(lambda: lk.fused_lk_level_reference(*args, **kw),
                           max(1, timing_reps // 10))
-            rows.append((k, name, var, err, eig, flips, dms, ms, pms))
+            b_ms, b_by = level_bound(k, *st.shape[1:], kw)
+            rows.append((k, name, var, err, eig, flips, equal, dms, ms, pms,
+                         b_ms, b_by, shape_us))
             v = per_variant.setdefault(
                 var, {"max_abs_err": 0.0, "ms": 0.0, "event_ms": 0.0,
                       "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": {}})
@@ -368,10 +395,55 @@ def compare_levels(stacks, plan, cfg, timing_reps):
             v["ms"] += dms
             v["event_ms"] += ms
             v["plain_ms"] += pms
-            b_ms, b_by = level_bound(k, *st.shape[1:], kw)
             v["bound_ms"] += b_ms
             v["bound_by"][b_by] = v["bound_by"].get(b_by, 0.0) + b_ms
     return per_variant, rows
+
+
+def level_anatomy(stacks, plan, cfg, card, reps=20):
+    """Phase 5 (--profile): the fused kernel at 1080p L0 (K pairs) against
+    two copies of csrc/fused_lk_level.cu built for this measurement only
+    (LK_FUSED_ANATOMY): one whose blocks return once their staging has
+    landed, one without the copies.  If the kernel takes about the second's
+    time, its passes bound it, not its copies."""
+    import ctypes
+
+    import torch
+    from lk_tpu_torch import _build
+    from lk_tpu_torch.flow import lk_kernels as lk
+
+    out_dir = _build.build_dir()
+    src = str(_build._PKG / _build.SOURCES[0])
+    procs = {}
+    for mode in (1, 2):
+        so = out_dir / f"fused_lk_level_anatomy{mode}.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-DLK_FUSED_ANATOMY={mode}",
+               "-shared", "-o", str(so), src]
+        procs[mode] = (so, subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
+                                            stderr=subprocess.PIPE, text=True))
+    libs = {}
+    for mode, (so, proc) in procs.items():
+        _, err = proc.communicate()
+        check(proc.returncode == 0, f"anatomy copy {mode}: {err[-2000:]}")
+        libs[mode] = ctypes.CDLL(str(so))
+        lk.bind(libs[mode])
+    name, _, st, _, kw = level_calls(stacks, plan, cfg, K)[-1]
+    k, h, w = st[:-1].shape
+    coarse = torch.zeros((k, 2, h // 2, w // 2), dtype=torch.float32,
+                         device=st.device)
+    args = (st[:-1], st[1:], coarse)
+    times = {"kernel": cuda_ms(lambda: lk.fused_lk_level(*args, **kw), reps)}
+    real = _build._lib
+    try:
+        for mode, label in ((1, "staging only"), (2, "without the copies")):
+            _build._lib = libs[mode]
+            times[label] = cuda_ms(lambda: lk.fused_lk_level(*args, **kw),
+                                   reps)
+    finally:
+        _build._lib = real
+    print(f"[profile] fused level anatomy, K={k} {name}: " + ", ".join(
+        f"{label} {ms:.4f} ms" for label, ms in times.items())
+        + f"  [{card}]")
 
 
 KERNEL_GROUPS = (("fused_lk_level_kernel", "fused_lk_level"),
@@ -397,14 +469,20 @@ def traced_kernels(run, reps):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            run()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    check(bool(kernels), "the profiler saw no device time")
-    return kernels
+    # a process's first trace can come back without its device events
+    # (seen once on the card, in a run whose next trace was complete):
+    # trace once more before failing
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        if kernels:
+            return kernels
+    check(False, "the profiler saw no device time")
 
 
 def device_us(run, name: str, reps: int = 10) -> float:
@@ -1245,11 +1323,22 @@ def main() -> int:
     frames0 = torch.from_numpy(scenes[0][2]).to(dev)
     stacks = dense.build_frame_levels(frames0[:K + 1], cfg, dcfg)
     per_variant, rows = compare_levels(stacks, plan, cfg, timing_reps=20)
-    for k, name, var, err, eig, flips, dms, ms, pms in rows:
+    for (k, name, var, err, eig, flips, equal, dms, ms, pms, b_ms, b_by,
+         shape_us) in rows:
+        shapes = ", ".join(f"{bh}x{bw} {us:.1f} us" for (bh, bw), us
+                           in zip(lk.BLOCK_SHAPES, shape_us))
         print(f"[kernel] K={k} {name} ({var}): max|dflow| {err:.3g} px, "
-              f"max rel dmin_eig {eig:.3g}, valid flips {flips:.3g}; "
-              f"kernel device {dms:.3f} ms ({dms / k:.3f} ms/pair; events "
-              f"{ms:.3f} ms), plain {pms:.3f} ms  [{card}]")
+              f"max rel dmin_eig {eig:.3g}, valid flips {flips:.3g}, "
+              f"bit-equal {equal}; kernel device {dms:.4f} ms "
+              f"({dms / k:.4f} ms/pair; events {ms:.4f} ms), bound "
+              f"{b_ms:.4f} ms ({b_by}), plain {pms:.3f} ms; each block "
+              f"shape forced (same bits): {shapes}  [{card}]")
+    for var, v in per_variant.items():
+        print(f"[kernel] fused_lk_level[{var}] at the 1080p plan shapes: "
+              f"device {v['ms']:.4f} ms (first design: "
+              f"{FIRST_DESIGN_MS[var]} ms), bound "
+              f"{v['bound_ms']:.4f} ms, max|dflow| {v['max_abs_err']:.3g} px"
+              f"  [{card}]")
     print(f"[kernel] chunk (K={K}) output == single-pair output: "
           "bit-identical")
 
@@ -1315,6 +1404,7 @@ def main() -> int:
           f" (one pair = one output flow field)  [{card}]")
     if profile:
         profile_run("video", run_video, card)
+        level_anatomy(stacks, plan, cfg, card)
     del frames, stacks
 
     # --- 6. per-pair kernels vs plain at the paths' shapes -------------------

@@ -53,6 +53,9 @@ import torch
 
 HALO = 8          # halo rows/cols around a tile (15x15 window -> +-7, +1)
 MAX_LOCAL = 8     # largest warp residual range the CUDA kernel is built for
+# The CUDA kernel's output block shapes (rows, cols), by the index its
+# launch takes.
+BLOCK_SHAPES = ((34, 32), (17, 32))
 
 # Counters: kernel launches (one per iteration per call) by TPU-kernel
 # variant, and calls of the plain version.
@@ -170,7 +173,10 @@ def _frame_stride(t: torch.Tensor) -> int:
 
 def _fused_lk_level_cuda(prev, nxt, flow, *, tile_h, tile_w, max_disp, local,
                          n_iters, coarse_in, write_stats, min_eig_threshold,
-                         win_k):
+                         win_k, shape=-1):
+    """The kernel's launches.  ``shape`` picks the block shape (an index
+    into ``BLOCK_SHAPES``; -1: the kernel's own choice from the level's
+    size); every shape computes the same bits."""
     from lk_tpu_torch import _build
 
     _check_args(prev, nxt, flow, tile_h, tile_w, local, n_iters, coarse_in,
@@ -203,7 +209,7 @@ def _fused_lk_level_cuda(prev, nxt, flow, *, tile_h, tile_w, max_disp, local,
             me.data_ptr() if stats else None,
             va.data_ptr() if stats else None,
             k, h, w, ch, cw, tile_h, tile_w, int(coarse_in), local, win_k,
-            float(max_disp), thr, stream)
+            float(max_disp), thr, shape, stream)
         if rc != 0:
             raise RuntimeError(
                 "fused_lk_level kernel launch failed: CUDA error "
@@ -222,7 +228,7 @@ def bind(lib: ctypes.CDLL) -> None:
         p, p, p, p, p,         # cur, init, out, min_eig, valid
         i, i, i, i, i,         # K, H, W, CH, CW
         i, i, i, i, i,         # tile_h, tile_w, coarse, local, win_k
-        f, f, p,               # max_disp, eig_thr, stream
+        f, f, i, p,            # max_disp, eig_thr, block shape, stream
     ]
     lib.lk_fused_level_launch.restype = i
     lib.lk_error_string.argtypes = [i]

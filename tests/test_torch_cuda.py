@@ -37,48 +37,88 @@ def _frames(n, h, w, device, seed=0):
     return torch.from_numpy(np.stack(out).astype(np.float32)).to(device)
 
 
+def _noise(rng, shape, scale, device):
+    return torch.from_numpy(((rng.random(shape) - 0.5) * 2.0 * scale)
+                            .astype(np.float32)).to(device)
+
+
+# (level h, w, tile h, w, local, n_iters, coarse_in, write_stats, flow,
+#  win_k)
+LEVEL_CASES = {
+    "resident": (128, 512, 128, 512, 5, 4, False, True, "zero"),
+    "tiled_iters": (128, 512, 64, 256, 5, 3, False, True, "noise"),
+    "coarse": (128, 512, 64, 256, 5, 1, True, True, "noise"),
+    "coarse_nostats": (128, 512, 64, 256, 5, 1, True, False, "noise"),
+    # the 1080p finer levels' reference tile (8.5 of the first design's
+    # 32-row blocks)
+    "tile272_coarse": (544, 512, 272, 512, 3, 1, True, True, "noise"),
+    "tile272_local4": (272, 512, 272, 512, 4, 2, False, True, "noise"),
+    "local3": (128, 256, 128, 128, 3, 2, False, True, "noise"),
+    "local4_coarse": (128, 256, 64, 128, 4, 1, True, True, "noise"),
+    # flow of +-(max_disp + 4) px: warp windows beyond the level's border
+    "border": (96, 160, 96, 160, 5, 2, False, True, "far"),
+    "border_coarse": (96, 160, 48, 160, 3, 1, True, True, "far"),
+    # a level smaller than one block of every shape
+    "small": (12, 20, 12, 20, 5, 3, False, True, "noise"),
+    "small_coarse": (14, 22, 14, 22, 4, 1, True, True, "noise"),
+    # a window narrower than 15 taps (the kernel's run-time win_k path)
+    "win9": (128, 256, 64, 128, 5, 2, False, True, "noise", 9),
+    "win9_coarse": (128, 256, 64, 128, 3, 1, True, True, "noise", 9),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["resident", "tiled_iters", "coarse",
-                                  "coarse_nostats"])
-def test_kernel_matches_plain(cuda_device, case):
+@pytest.mark.parametrize("shape", [-1] + list(range(len(lk.BLOCK_SHAPES))))
+@pytest.mark.parametrize("case", list(LEVEL_CASES))
+def test_kernel_matches_plain(cuda_device, case, shape):
     """Both sides are f32 with the same operation order (the kernel is built
-    without FMA contraction; the plain version divides like it), so they
-    agree to 1e-4 px and flip no valid flag; K=3 pairs equal single-pair
+    without FMA contraction; the plain version divides like it), so flow,
+    min_eig and valid are equal bit for bit, with the kernel's own block
+    shape (-1) and with each shape forced; K=4 pairs equal single-pair
     calls bit for bit."""
-    h, w = 128, 512
-    frames = _frames(4, h, w, cuda_device)
+    h, w, th, tw, local, n_iters, coarse, stats, kind, *win = \
+        LEVEL_CASES[case]
+    win_k = win[0] if win else 15
+    frames = _frames(5, h, w, cuda_device)
     rng = np.random.default_rng(1)
-    kw = dict(max_disp=8, local=5, min_eig_threshold=THR)
-    if case == "resident":
-        flow = torch.zeros((3, 2, h, w), device=cuda_device)
-        kw.update(tile_h=h, tile_w=w, n_iters=4)
-    elif case == "tiled_iters":
-        flow = torch.from_numpy(((rng.random((3, 2, h, w)) - 0.5) * 2.0)
-                                .astype(np.float32)).to(cuda_device)
-        kw.update(tile_h=64, tile_w=256, n_iters=3)
+    disp = 8
+    fh, fw = (h // 2, w // 2) if coarse else (h, w)
+    if kind == "zero":
+        flow = torch.zeros((4, 2, fh, fw), device=cuda_device)
+    elif kind == "noise":
+        flow = _noise(rng, (4, 2, fh, fw), 1.0, cuda_device)
     else:
-        flow = torch.from_numpy(((rng.random((3, 2, h // 2, w // 2)) - 0.5)
-                                 * 2.0).astype(np.float32)).to(cuda_device)
-        kw.update(tile_h=64, tile_w=256, coarse_in=True,
-                  write_stats=case == "coarse")
+        sign = torch.tensor([1.0, -1.0, -1.0, 1.0], device=cuda_device)
+        flow = (_noise(rng, (4, 2, fh, fw), 2.0, cuda_device)
+                + sign[:, None, None, None] * (disp + 4.0)
+                / (2.0 if coarse else 1.0))
+    kw = dict(tile_h=th, tile_w=tw, max_disp=disp, local=local,
+              n_iters=n_iters, coarse_in=coarse, write_stats=stats,
+              min_eig_threshold=THR, win_k=win_k)
+
+    def kernel(a, b, f):
+        if shape < 0:
+            return lk.fused_lk_level(a, b, f, **kw)
+        return lk._fused_lk_level_cuda(a, b, f, shape=shape, **kw)
+
     lk.reset_counters()
-    fk, mk, vk = lk.fused_lk_level(frames[:-1], frames[1:], flow, **kw)
-    assert sum(lk.kernel_launches_by_variant.values()) == kw.get("n_iters",
-                                                               1)
+    fk, mk, vk = kernel(frames[:-1], frames[1:], flow)
+    assert sum(lk.kernel_launches_by_variant.values()) == n_iters
     assert lk.plain_calls == 0
     fp, mp, vp = lk.fused_lk_level_reference(frames[:-1], frames[1:], flow,
                                              **kw)
     torch.cuda.synchronize()
-    assert float((fk - fp).abs().max()) < 1e-4
-    if mk is not None:
-        assert float((mk - mp).abs().max() / mp.abs().max()) < 1e-5
-        assert torch.equal(vk, vp)
+    assert torch.equal(fk, fp)
+    if stats:
+        assert torch.equal(mk, mp) and torch.equal(vk, vp)
     else:
-        assert mp is None and vk is None
-    for f in range(3):
-        one = lk.fused_lk_level(frames[f:f + 1], frames[f + 1:f + 2],
-                                flow[f:f + 1], **kw)
+        assert mk is None and mp is None and vk is None
+    for f in range(4):
+        one = kernel(frames[f:f + 1], frames[f + 1:f + 2], flow[f:f + 1])
         assert torch.equal(fk[f], one[0][0])
+        if stats:
+            assert torch.equal(mk[f], one[1][0])
+            assert torch.equal(vk[f], one[2][0])
 
 
 @pytest.mark.cuda
