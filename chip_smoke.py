@@ -4,10 +4,10 @@
 Drives the port's paths and checks them.  The dense video path: pyramidal
 LK over 1080p video with the production config.  The per-pair dense
 paths at 1080p: A, ``lk_tpu_torch.entry.entry()``'s program (the
-production config per pair, pyrDown kernel + fused level); B, the
+production config per pair, pyramid kernel + fused level); B, the
 warp-only / precomputed-A config (local warp at L0-L2, the precomputed
 level at the top); C, the default config's XLA level (plain PyTorch but
-for the pyrDown kernel).  The serving path: batched VP serving,
+for the pyramid kernel).  The serving path: batched VP serving,
 MultiStreamPipeline at 64 streams of 860x483 frames, chunk 16, out_cap 48,
 preset final, fed from a u8 staging array on the card, as apps/serve.py
 runs it.
@@ -24,28 +24,35 @@ runs it.
      the kernel's first design;
   3. dense main path: dense_pyramidal_lk_video on two synthetic 34-frame
      1080p scenes (8 chunks of 4 pairs plus a 1-pair tail), with the
-     launch counters reset just before and read just after; mean EPE vs
-     exact ground truth on bench.py's grid must be < 0.1 px;
+     launch counters reset just before and read just after (one pyramid
+     launch per build: 10); flow, min_eig and valid equal to the same run
+     with the plain pyramid; mean EPE vs exact ground truth on bench.py's
+     grid must be < 0.1 px;
   4. dense timing with CUDA events: pairs/s (output flow fields per second)
      of the chained video through the kernels and through the plain
      versions;
   5. only with --profile: host enqueue and wall per video, a
-     torch.profiler breakdown of its device time by kernel group, and the
-     fused kernel at L0 against copies built to measure its staging alone
-     and its passes alone;
-  6. per-pair kernels vs plain at the paths' shapes: pyrDown on path A's
-     three pair levels, a 5-frame chunk and an odd shape; the local warp
+     torch.profiler breakdown of its device time by kernel group, and (run
+     last of all) the fused kernel at L0 against copies built to measure
+     its staging alone and its passes alone;
+  6. the pyramid build vs plain at the video's 5-frame chunk (padded to
+     1088x2048, 3 levels), path A's pair, the serving tracker's batch and
+     an odd stack, every level torch.equal, beside its bound, the
+     parent's composition (edge pad + one pyrDown launch per level) and
+     the library (F.pad + nn.Conv2d per level), and the chunk's time with
+     the grid capped at 1, 2 and 4 blocks per SM; the local warp
      at path B's padded L0-L2 with a zoom flow and outliers beyond +-local;
      the precomputed level at path B's top (136x240, 6 iterations) and
      tiled (576x1024 on 64x512 tiles, 2 iterations); per call the
      kernels' own device time (torch.profiler) and the CUDA-event time,
      plain ms, bound, library call;
   7. path A: entry()'s fn on its own inputs, then on both scenes' first
-     pair, counters reset just before and read just after each (pyrDown 3,
+     pair, counters reset just before and read just after each (pyramid 1,
      fused level resident 6 + tiled 3, no plain call), EPE < 0.1 px, and
-     the flow equal to the video chain's pair 0 bit for bit;
+     the flow equal to the run with the plain pyramid and to the video
+     chain's pair 0 bit for bit;
   8. paths B and C on both scenes' first pair, counted the same way (B:
-     pyrDown 3, local warp 3, precomputed level 6; C: pyrDown 3 only);
+     pyramid 1, local warp 3, precomputed level 6; C: pyramid 1 only);
      B's EPE < 0.1 px, C's printed;
   9. per-pair timing with CUDA events: ms per pair of paths A, B and C;
      with --profile also each path's host enqueue and device time by
@@ -56,7 +63,8 @@ runs it.
  11. serving main path: one pass of MultiStreamPipeline.feed_staged +
      drain, counters reset just before and read just after (the finish
      kernel once per chunk plus once for the init frame, the window gather
-     three times per processed frame, no plain call); every stream runs
+     three times per processed frame, the tracker's pyramid once per
+     processed frame and once per chunk, no plain call); every stream runs
      63 frames, the mean late-trajectory VP error is < 25 px
      (tests/test_pipeline_e2e.py's bound); the first 4 streams run again
      through the plain versions on the card give the same csv rows;
@@ -71,8 +79,9 @@ runs it.
      stage, and the device's busy share.
 
 Prints a {"kernels": [...]} JSON line (each entry's "ms" is the kernel's
-own device time per call from torch.profiler, "event_ms" the CUDA-event
-time around the wrapper's calls), the card line, and as the last line
+own device time per call from torch.profiler, its launches counted in the
+trace, "event_ms" the CUDA-event time around the wrapper's calls), the
+card line, and as the last line
 {"ok": true, "device": {...}}.  Any failed check raises: the exit code is
 then non-zero and no result line is printed.  Without a CUDA device, or run
 from a directory without the package, it exits non-zero at once.
@@ -93,6 +102,10 @@ import numpy as np
 H, W = 1080, 1920
 FRAMES = 34               # 33 pairs = 8 chunks of 4 + a 1-pair tail
 K = 4                     # pairs per chunk (DenseLKConfig.video_chunk)
+# pyramid builds per video: one per chunk of K+1 frames, one per frame of
+# the per-frame tail (its pairs + 1 frames)
+VIDEO_PYRAMIDS = (FRAMES - 1) // K + ((FRAMES - 1) % K + 1
+                                     if (FRAMES - 1) % K else 0)
 EPE_LIMIT = 0.1           # px, bench.py's gate (ground-truth term)
 # Kernel vs plain version: both f32 with the same operation order (the
 # kernel is built without FMA contraction), so they should agree to the
@@ -129,6 +142,11 @@ PATH_CFGS = {
 PYR_OPS_IN_PX = 6.75
 WARP_OPS_PX = 30
 PRE_OPS_PX = 115
+# Device spins around a profiler trace (see traced_kernels): 5e7 clocks,
+# ~25 ms at the H100's 1.98 GHz boost clock, at each end, the leading one
+# cut into LEAD_SPINS kernels.
+SPIN_CYCLES = 50_000_000
+LEAD_SPINS = 8
 # Peak rates of one H100 SXM (NVIDIA's data sheet) for the bounds.
 HBM_BYTES_S = 3.35e12
 F32_FLOPS = 67e12
@@ -150,6 +168,16 @@ REPLACES = {
 # run's.
 FIRST_DESIGN_MS = {"resident_batched": 0.235, "batched": 1.756,
                    "resident": 0.203, "tiled": 0.485}
+# The pyramid build's device time before its redesign as one launch (PERF.md
+# section 5 and its kernel table, row 5, on an NVIDIA H100 80GB HBM3 at
+# 700 W), printed beside this run's.
+SEPARATE_PAD_MS = {
+    "video chunk": "a 34-frame video's 10 builds took 0.450 ms of pyrDown "
+                   "(30 launches) + 0.719 ms of the base's edge pad (20 "
+                   "index_select launches)",
+    "path A pair": "pyrDown 0.0241 ms (3 launches; 13.9 + 6.3 + 3.9 us), "
+                   "the base's edge pad not timed alone",
+}
 
 
 def configs():
@@ -172,6 +200,25 @@ def device():
     import torch
 
     return torch.device("cuda", 0)
+
+
+def plain_pyramid():
+    """Context: the dense paths with the plain pyramid build (dense.py looks
+    ``build_pyramid`` up at call time), every other kernel unchanged."""
+    import contextlib
+
+    from lk_tpu_torch.flow import dense
+    from lk_tpu_torch.ops import blur
+
+    @contextlib.contextmanager
+    def ctx():
+        dense.build_pyramid = blur.build_pyramid_reference
+        try:
+            yield
+        finally:
+            dense.build_pyramid = blur.build_pyramid
+
+    return ctx()
 
 
 def reset_counters() -> None:
@@ -372,8 +419,9 @@ def compare_levels(stacks, plan, cfg, timing_reps):
                       f"{name}: K=1 stats differ from chunk pair 0")
                 coarse = cp[:1]
             ms = cuda_ms(lambda: lk.fused_lk_level(*args, **kw), timing_reps)
+            n_launch = {"fused_lk_level_kernel": kw["n_iters"]}
             dms = device_us(lambda: lk.fused_lk_level(*args, **kw),
-                            "fused_lk_level_kernel") / 1e3
+                            n_launch) / 1e3
             shape_us = []          # each block shape, forced: same bits?
             for shape, _ in enumerate(lk.BLOCK_SHAPES):
                 def forced(shape=shape):
@@ -382,7 +430,7 @@ def compare_levels(stacks, plan, cfg, timing_reps):
                 check(torch.equal(fs, fk) and (mk is None or (
                     torch.equal(fm, mk) and torch.equal(fv, vk))),
                       f"{name} K={k}: block shape {shape} changes the bits")
-                shape_us.append(device_us(forced, "fused_lk_level_kernel"))
+                shape_us.append(device_us(forced, n_launch))
             pms = cuda_ms(lambda: lk.fused_lk_level_reference(*args, **kw),
                           max(1, timing_reps // 10))
             b_ms, b_by = level_bound(k, *st.shape[1:], kw)
@@ -447,7 +495,7 @@ def level_anatomy(stacks, plan, cfg, card, reps=20):
 
 
 KERNEL_GROUPS = (("fused_lk_level_kernel", "fused_lk_level"),
-                 ("pyr_down_kernel", "pyr_down"),
+                 ("pyramid_kernel", "pyramid_kernel"),
                  ("local_warp_kernel", "local_warp"),
                  ("fused_level_pre_kernel", "fused_level_pre"))
 
@@ -463,38 +511,68 @@ def kernel_group(name: str) -> str:
             else "other")
 
 
-def traced_kernels(run, reps):
-    """The device kernels torch.profiler records over ``reps`` runs."""
+def traced_kernels(run, reps, launches=None):
+    """The device kernels torch.profiler records over ``reps`` runs.
+
+    ``launches`` ({name: launches of the kernels whose name holds it in
+    one run}) is checked: each name's events must number ``reps`` times
+    its launches, and a trace that misses any (or holds no device event
+    at all) is taken once more before the check fails."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    # a process's first trace can come back without its device events
-    # (seen once on the card, in a run whose next trace was complete):
-    # trace once more before failing
+    launches = launches or {}
+    seen = {}
+    # On the card the profiler can lose the first kernels of a trace: traces
+    # of 10 launches held 9, 8 or 6 of them, one that began with a marker
+    # kernel lost it and the first launch, one that began with one ~25 ms
+    # spin lost it and the first launch, and more are lost once extra CUDA
+    # modules are loaded.  So a trace begins with LEAD_SPINS short device
+    # spins the host waits out and ends with a long one, none of them
+    # returned; a trace that still misses a counted launch is taken once
+    # more before the check fails.
     for _ in range(2):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(LEAD_SPINS):
+                torch.cuda._sleep(SPIN_CYCLES // LEAD_SPINS)
+            torch.cuda.synchronize()
             for _ in range(reps):
                 run()
+            torch.cuda._sleep(SPIN_CYCLES)
             torch.cuda.synchronize()
-        kernels = [e for e in prof.events()
-                   if e.device_type == DeviceType.CUDA]
-        if kernels:
+        everything = sorted((e for e in prof.events()
+                             if e.device_type == DeviceType.CUDA),
+                            key=lambda e: e.time_range.start)
+        kernels = [e for e in everything if "spin_kernel" not in e.name]
+        seen = {name: sum(name in e.name for e in kernels)
+                for name in launches}
+        if kernels and all(seen[name] == reps * n
+                           for name, n in launches.items()):
             return kernels
-    check(False, "the profiler saw no device time")
+        t0 = everything[0].time_range.start if everything else 0
+        print(f"[profile] an incomplete trace: {seen} of "
+              f"{ {k: reps * n for k, n in launches.items()} }; its device "
+              f"events (start us, name): " + "; ".join(
+                  f"{e.time_range.start - t0:.0f} {e.name[:30]}"
+                  for e in everything[:40]), file=sys.stderr)
+    check(False, f"the profiler saw {len(kernels)} device events, of them "
+          f"{seen} where {reps} runs launch "
+          f"{ {k: reps * n for k, n in launches.items()} }")
 
 
-def device_us(run, name: str, reps: int = 10) -> float:
-    """Device time in us per run of the kernels whose name holds ``name``
-    (torch.profiler; reps runs after one warm-up): a kernel's own time,
-    which CUDA events around host-bound launches do not give."""
+def device_us(run, launches: dict, reps: int = 10) -> float:
+    """Device time in us per run of the kernels named in ``launches``
+    ({name: launches per run}; torch.profiler, reps runs after one
+    warm-up, the launch count checked): a kernel's own time, which CUDA
+    events around host-bound launches do not give."""
     import torch
 
     run()
     torch.cuda.synchronize()
-    ks = [e for e in traced_kernels(run, reps) if name in e.name]
-    check(bool(ks), f"the profiler saw no {name}")
+    ks = [e for e in traced_kernels(run, reps, launches)
+          if any(name in e.name for name in launches)]
     return sum(e.time_range.elapsed_us() for e in ks) / reps
 
 
@@ -579,9 +657,10 @@ def zoom_flow(h, w, dev, outliers, seed=11):
 
 
 def perpair_kernels(frames0, cfg, card, reps=20):
-    """Phase 6: the three per-pair kernels against their plain versions at
-    the paths' shapes, with ms per call, the plain ms, the bound and a
-    library call; returns their report entries (launches filled later)."""
+    """Phase 6: the local warp and the precomputed level against their
+    plain versions at path B's shapes, with ms per call, the plain ms, the
+    bound and a library call; returns their report entries (launches
+    filled later)."""
     import torch
     import torch.nn.functional as F
     from lk_tpu_torch.flow import dense
@@ -607,53 +686,6 @@ def perpair_kernels(frames0, cfg, card, reps=20):
                   f"{lcfg.warp_local}, disp {lcfg.level_disp(level)}; "
                   f"(resident, th, tw, hp, wp) = {geo}")
 
-    # --- pyrDown: path A's pair pyramid, a K+1 chunk, an odd shape ---------
-    base = dense._edge_pad(frames0[:K + 1], *dense.pyramid_base_geometry(
-        H, W, cfg, path_cfg("A")))
-    pair = [base[:2].contiguous()]
-    for _ in range(2):
-        pair.append(blur.pyr_down_reference(pair[-1]))
-    odd = torch.from_numpy(np.random.default_rng(3).random(
-        (3, 483, 861), dtype=np.float32) * 255).to(dev)
-    err_p = 0.0
-    for x in pair + [base, odd]:
-        e = cmp(blur.pyr_down(x), blur.pyr_down_reference(x),
-                f"pyr_down {tuple(x.shape)}")
-        err_p = max(err_p, e)
-        print(f"[kernel] pyr_down {tuple(x.shape)}: max|d| {e:.3g}")
-    g5 = torch.tensor([1.0, 4.0, 6.0, 4.0, 1.0], device=dev) / 16.0
-    conv = torch.nn.Conv2d(1, 1, 5, stride=2, padding=2,
-                           padding_mode="reflect", bias=False).to(dev)
-    ms_p = pms_p = lib_p = b_p = dev_p = 0.0
-    by_p = set()
-    with torch.no_grad():
-        conv.weight.copy_((g5[:, None] * g5[None, :])[None, None])
-        for x in pair:
-            ms = cuda_ms(lambda x=x: blur.pyr_down(x), reps)
-            dev_us = device_us(lambda x=x: blur.pyr_down(x),
-                               "pyr_down_kernel")
-            dev_p += dev_us
-            pms = cuda_ms(lambda x=x: blur.pyr_down_reference(x), 5)
-            xc = x[:, None]
-            lib = cuda_ms(lambda xc=xc: conv(xc), reps)
-            lib_err = float((conv(xc)[:, 0] - blur.pyr_down(x)).abs().max())
-            n, h, w = x.shape
-            bm, bb = bound((n * h * w + n * ((h + 1) // 2) * ((w + 1) // 2))
-                           * 4, n * h * w * PYR_OPS_IN_PX)
-            ms_p, pms_p, lib_p, b_p = ms_p + ms, pms_p + pms, lib_p + lib, \
-                b_p + bm
-            by_p.add(bb)
-            print(f"[kernel] pyr_down {tuple(x.shape)} (path A pair level): "
-                  f"kernel device {dev_us:.1f} us (events {ms:.4f} ms), plain "
-                  f"{pms:.3f} ms, bound {bm:.4f} ms ({bb}), library "
-                  f"nn.Conv2d 5x5 stride 2 reflect {lib:.4f} ms (max|d| "
-                  f"{lib_err:.3g})  [{card}]")
-    print(f"[kernel] pyr_down, path A's pair pyramid (3 launches): kernel "
-          f"device {dev_p:.1f} us (events {ms_p:.4f} ms), plain "
-          f"{pms_p:.3f} ms, bound {b_p:.4f} ms, library {lib_p:.4f} ms  "
-          f"[{card}]")
-    del base, pair
-
     # --- local warp: path B's L0-L2 at their padded shapes ------------------
     b_levels = path_levels("B", cfg)
     nxt_levels = dense.build_frame_levels(frames0[1], cfg, path_cfg("B"))
@@ -662,7 +694,7 @@ def perpair_kernels(frames0, cfg, card, reps=20):
     by_w = set()
     top = None
     for level, (h, w), lcfg, (_, th, tw, hp, wp) in b_levels:
-        nxt = dense._edge_pad(nxt_levels[level], hp, wp).contiguous()
+        nxt = blur.edge_pad(nxt_levels[level], hp, wp).contiguous()
         if lcfg.use_pallas_fused:
             top = (level, nxt, lcfg, th, tw, hp, wp)
             continue
@@ -675,7 +707,7 @@ def perpair_kernels(frames0, cfg, card, reps=20):
         err_w = max(err_w, e)
         ms = cuda_ms(lambda: wk.local_warp(nxt, flow, **kw), reps)
         dev_us = device_us(lambda: wk.local_warp(nxt, flow, **kw),
-                           "local_warp_kernel")
+                           {"local_warp_kernel": 1})
         dev_w += dev_us
         pms = cuda_ms(lambda: wk.local_warp_reference(nxt, flow, **kw), 3)
         ys, xs = torch.meshgrid(torch.arange(hp, device=dev),
@@ -710,12 +742,12 @@ def perpair_kernels(frames0, cfg, card, reps=20):
               th, tw, lcfg.warp_local, lcfg.level_disp(level),
               lcfg.outer_iters),
              ("L1 576x1024 tile 64x512", 1,
-              dense._edge_pad(nxt_levels[1], 576, 1024).contiguous(), 576,
+              blur.edge_pad(nxt_levels[1], 576, 1024).contiguous(), 576,
               1024, 64, 512, l1[2].warp_local, l1[2].level_disp(1), 2)]
     entry = None
     err_f = 0.0
     for label, lv, nxt, hp, wp, th, tw, local, disp, iters in cases:
-        prev = dense._edge_pad(prev_levels[lv], hp, wp).contiguous()
+        prev = blur.edge_pad(prev_levels[lv], hp, wp).contiguous()
         ix, iy, a11, a12, a22, _, _, inv_det = dense.level_prologue(
             prev, cfg, "edge")
         flow = zoom_flow(hp, wp, dev, outliers=True) * 0.25
@@ -729,7 +761,7 @@ def perpair_kernels(frames0, cfg, card, reps=20):
         ms = cuda_ms(lambda: wk.fused_lk_level_precomputed(*args, **kw),
                      reps)
         dev_us = device_us(lambda: wk.fused_lk_level_precomputed(
-            *args, **kw), "fused_level_pre_kernel")
+            *args, **kw), {"fused_level_pre_kernel": iters})
         pms = cuda_ms(lambda: wk.fused_lk_level_precomputed_reference(
             *args, **kw), 3)
         # the 8 read-only planes and the initial flow read once, the flow
@@ -745,14 +777,6 @@ def perpair_kernels(frames0, cfg, card, reps=20):
         if entry is None:            # path B's own call: the report entry
             entry = (dev_us / 1e3, ms, pms, bm, bb)
     return [
-        {"name": "pyr_down", "route": "cuda",
-         "source": "lk_tpu_torch/csrc/pyr_down.cu",
-         "replaces": "lk_tpu/flow/pallas_kernels.py:2660",
-         "max_abs_err": err_p, "ms": dev_p / 1e3, "event_ms": ms_p,
-         "plain_ms": pms_p,
-         "bound_ms": b_p,
-         "bound_by": "bytes" if by_p == {"bytes"} else "operations",
-         "library_ms": lib_p},
         {"name": "local_warp", "route": "cuda",
          "source": "lk_tpu_torch/csrc/local_warp.cu",
          "replaces": "lk_tpu/flow/pallas_kernels.py:330",
@@ -770,10 +794,157 @@ def perpair_kernels(frames0, cfg, card, reps=20):
     ]
 
 
+def pyramid_bound(n, hw, pad, levels):
+    """Least time of one pyramid build: the f32 frames read once, the
+    padded base (if any) and every level written once; PYR_OPS_IN_PX per
+    input pixel of each level."""
+    (h, w), (hp, wp) = hw, pad
+    nbytes = n * h * w * 4 + (n * hp * wp * 4 if (hp, wp) != (h, w) else 0)
+    ops = 0.0
+    for _ in range(levels):
+        ops += n * hp * wp * PYR_OPS_IN_PX
+        hp, wp = (hp + 1) // 2, (wp + 1) // 2
+        nbytes += n * hp * wp * 4
+    return bound(nbytes, ops)
+
+
+def pyramid_phase(frames0, cfg, card, reps=20):
+    """Phase 6a: the pyramid build against its plain version at four
+    shapes: the video's chunk (K+1 frames padded to the 1080p plan's base),
+    path A's pair, the serving tracker's batch at its levels (no pad) and
+    an odd stack.  At each: every level torch.equal; the kernel's device
+    time (counted torch.profiler), its CUDA-event time, the plain time,
+    the bound; the parent's composition (edge pad, then one pyrDown call
+    per level, here the kernel's one-level form) and the library
+    (F.pad replicate + one nn.Conv2d 5x5 stride 2 reflect per level),
+    both timed in this call.  Returns the report entry (the video chunk's
+    numbers; launches filled later)."""
+    import torch
+    import torch.nn.functional as F
+    from lk_tpu_torch.flow import dense
+    from lk_tpu_torch.ops import blur
+
+    dev = frames0.device
+    pad = dense.pyramid_base_geometry(H, W, cfg, path_cfg("A"))
+    top = dense._effective_cfg(cfg, path_cfg("A"), (H, W)).max_level
+    s_levels = serving_config().lk.max_level
+    rng = np.random.default_rng(3)
+    cases = [
+        ("video chunk", frames0[:K + 1], pad, top),
+        ("path A pair", frames0[:2], pad, top),
+        ("serving tracker batch", torch.from_numpy(rng.random(
+            (SB, SH, SW), dtype=np.float32) * 255).to(dev), None, s_levels),
+        ("odd stack", torch.from_numpy(rng.random(
+            (3, 483, 861), dtype=np.float32) * 255).to(dev), None, 3),
+    ]
+    g5 = torch.tensor([1.0, 4.0, 6.0, 4.0, 1.0], device=dev) / 16.0
+    conv = torch.nn.Conv2d(1, 1, 5, stride=2, padding=2,
+                           padding_mode="reflect", bias=False).to(dev)
+    entry = None
+    err = 0.0
+    with torch.no_grad():
+        conv.weight.copy_((g5[:, None] * g5[None, :])[None, None])
+        for label, x, pad_hw, levels in cases:
+            n, h, w = x.shape
+            hp, wp = pad_hw or (h, w)
+            padded = (hp, wp) != (h, w)
+
+            def kernel(x=x, pad_hw=pad_hw, levels=levels):
+                return blur.build_pyramid(x, levels, pad_hw)
+
+            def parent(x=x, hp=hp, wp=wp, levels=levels):
+                lv = blur.edge_pad(x, hp, wp)
+                for _ in range(levels):
+                    lv = blur.pyr_down(lv)
+
+            def library(x=x, levels=levels):
+                y = x[:, None]
+                if padded:
+                    y = F.pad(y, (0, wp - w, 0, hp - h), mode="replicate")
+                out = [y]
+                for _ in range(levels):
+                    out.append(conv(out[-1]))
+                return out
+
+            got = kernel()
+            want = blur.build_pyramid_reference(x, levels, pad_hw)
+            lib_out = library()
+            torch.cuda.synchronize()
+            check(len(got) == len(want) == levels + 1,
+                  f"pyramid {label}: {len(got)} levels")
+            for i, (g, wt) in enumerate(zip(got, want)):
+                check(g.shape == wt.shape and bool(torch.isfinite(g).all()),
+                      f"pyramid {label} L{i}: {tuple(g.shape)} vs "
+                      f"{tuple(wt.shape)}")
+                d = float((g - wt).abs().max())
+                err = max(err, d)
+                check(torch.equal(g, wt), f"pyramid {label} L{i}: not equal "
+                      f"to the plain version (max|d| {d})")
+            lib_err = max(float((o[:, 0] - g).abs().max())
+                          for o, g in zip(lib_out, got))
+            dms = device_us(kernel, {"pyramid_kernel": 1}) / 1e3
+            ms = cuda_ms(kernel, reps)
+            pms = cuda_ms(lambda: blur.build_pyramid_reference(
+                x, levels, pad_hw), 3)
+            par = device_us(parent, {"pyramid_kernel": levels,
+                                     "gather_elementwise": 2 if padded else 0}
+                            ) / 1e3
+            par_ms = cuda_ms(parent, reps)
+            lib = cuda_ms(library, reps)
+            bm, bb = pyramid_bound(n, (h, w), (hp, wp), levels)
+            print(f"[kernel] pyramid {label} {tuple(x.shape)} -> base "
+                  f"{hp}x{wp} + {levels} levels: torch.equal on every level;"
+                  f" kernel device {dms:.4f} ms (events {ms:.4f}), bound "
+                  f"{bm:.4f} ms ({bb}), at {bm / dms:.1%} of the bound; "
+                  f"parent composition device {par:.4f} ms (the edge pad's "
+                  f"{2 if padded else 0} gathers + {levels} one-level "
+                  f"launches; events, with the pad's index builds, "
+                  f"{par_ms:.4f}); plain {pms:.3f} ms; "
+                  f"library F.pad + nn.Conv2d 5x5 stride 2 reflect per level"
+                  f" {lib:.4f} ms (max|d| {lib_err:.3g}); 1 launch  [{card}]")
+            if label in SEPARATE_PAD_MS:
+                print(f"[kernel] pyramid {label}, before the one-launch "
+                      f"design: {SEPARATE_PAD_MS[label]}  "
+                      f"[NVIDIA H100 80GB HBM3, 700.00 W]")
+            if entry is None:        # the video chunk: the report entry
+                # the grid, capped below the resident maximum: same bits?
+                caps = []
+                for cap in (1, 2, 4):
+                    def capped(cap=cap):
+                        return blur._pyramid_cuda(x, levels, pad_hw,
+                                                  blocks_per_sm=cap)
+                    check(all(torch.equal(a, b)
+                              for a, b in zip(capped(), got)),
+                          f"pyramid {label}: {cap} blocks per SM changes "
+                          f"the bits")
+                    caps.append(f"{cap} per SM "
+                                f"{device_us(capped, {'pyramid_kernel': 1}):.1f}"
+                                f" us")
+                print(f"[kernel] pyramid {label}, grid capped (same bits): "
+                      f"{', '.join(caps)}; resident maximum {dms * 1e3:.1f}"
+                      f" us  [{card}]")
+                # the build cut after each level: what each level adds
+                cut = [f"{n_lv} level{'s' if n_lv > 1 else ''} "
+                       f"{device_us(lambda n_lv=n_lv: blur.build_pyramid(x, n_lv, pad_hw), {'pyramid_kernel': 1}):.1f} us"
+                       for n_lv in range(1, levels)]
+                print(f"[kernel] pyramid {label}, cut after each level: "
+                      f"{', '.join(cut)}, {levels} levels "
+                      f"{dms * 1e3:.1f} us  [{card}]")
+                entry = {"name": "pyr_down", "route": "cuda",
+                         "source": "lk_tpu_torch/csrc/pyr_down.cu",
+                         "replaces": "lk_tpu/flow/pallas_kernels.py:2660",
+                         "ms": dms, "event_ms": ms, "plain_ms": pms,
+                         "bound_ms": bm, "bound_by": bb, "library_ms": lib,
+                         "parent_ms": par}
+            del got, want, lib_out
+    entry["max_abs_err"] = err
+    return entry
+
+
 EXPECT = {   # launches per pair at 1080p; every other count 0
-    "A": {"pyr_down": 3, "resident": 6, "tiled": 3},
-    "B": {"pyr_down": 3, "local_warp": 3, "fused_lk_level_precomputed": 6},
-    "C": {"pyr_down": 3},
+    "A": {"pyr_down": 1, "resident": 6, "tiled": 3},
+    "B": {"pyr_down": 1, "local_warp": 3, "fused_lk_level_precomputed": 6},
+    "C": {"pyr_down": 1},
 }
 
 
@@ -812,12 +983,17 @@ def perpair_paths(scenes, video_pair0, cfg, card):
         pair = torch.from_numpy(frames_np[:2]).to(device())
         flow, counts = counted("A", fn, pair[0], pair[1])
         result.setdefault("A", counts)
+        with plain_pyramid():
+            same_plain = torch.equal(fn(pair[0], pair[1]), flow)
+        check(same_plain, f"path A {label}: the flow differs with the plain "
+              f"pyramid")
         epe = mean_epe(flow[None].cpu().numpy(), a)
         same = torch.equal(flow, video_pair0[label])
         d = float((flow - video_pair0[label]).abs().max())
         print(f"[path A] {label}: launches {counts}, plain calls 0, mean "
-              f"EPE {epe:.4f} px (limit {EPE_LIMIT}); == video chain pair "
-              f"0: {same} (max|d| {d:.3g} px)")
+              f"EPE {epe:.4f} px (limit {EPE_LIMIT}); == the run with the "
+              f"plain pyramid: {same_plain}; == video chain pair 0: {same} "
+              f"(max|d| {d:.3g} px)")
         check(epe < EPE_LIMIT, f"path A {label}: EPE {epe}")
         check(same, f"path A {label}: per-pair flow differs from the video "
               f"chain's pair 0 by {d} px")
@@ -955,15 +1131,15 @@ def plain_versions():
 
     @contextlib.contextmanager
     def ctx():
-        old = finish.fused_finish, sparse.gather_windows, sparse.pyr_down
+        old = finish.fused_finish, sparse.gather_windows, sparse.build_pyramid
         finish.fused_finish = finish.fused_finish_reference
         sparse.gather_windows = sparse.gather_windows_reference
-        sparse.pyr_down = blur.pyr_down_reference
+        sparse.build_pyramid = blur.build_pyramid_reference
         try:
             yield
         finally:
             (finish.fused_finish, sparse.gather_windows,
-             sparse.pyr_down) = old
+             sparse.build_pyramid) = old
 
     return ctx()
 
@@ -1006,6 +1182,10 @@ def serving_main_path(staging, vps, card):
           f"finish launches {launches['finish']} != {n_chunks() + 1}")
     check(launches["window_gather"] == 3 * frames,
           f"gather launches {launches['window_gather']} != {3 * frames}")
+    # the tracker's pyramid: once per processed frame, once per chunk's seed
+    check(launches["pyr_down"] == frames + n_chunks(),
+          f"pyramid launches {launches['pyr_down']} != "
+          f"{frames + n_chunks()}")
     check(all(p.frames_done == frames for p in ms.pipes),
           "a stream did not run every frame")
     rows = [np.array(p.csv_rows, np.float64) for p in ms.pipes]
@@ -1102,8 +1282,8 @@ def serving_kernels(staging, card, reps=20):
             check(e <= KERNEL_TOL, f"finish {label}: max|d| {e}")
             err_f = max(err_f, e)
     ms_f = cuda_ms(lambda: finish.fused_finish(chunk), reps)
-    dms_f = device_us(lambda: finish.fused_finish(chunk), "finish_kernel") \
-        / 1e3
+    dms_f = device_us(lambda: finish.fused_finish(chunk),
+                      {"finish_kernel": 1}) / 1e3
     pms_f = cuda_ms(lambda: finish.fused_finish_reference(chunk), 3)
     ms_ft = cuda_ms(lambda: finish.fused_finish(chunk, True), reps)
     px = chunk.numel()
@@ -1144,7 +1324,7 @@ def serving_kernels(staging, card, reps=20):
         a = (prev_f, next_f, cy, cx, sy, sx, wh, ww, swh, sww)
         ms_g.append(cuda_ms(lambda: sparse.gather_windows(*a), reps))
         dms_g.append(device_us(lambda: sparse.gather_windows(*a),
-                               "window_gather_kernel") / 1e3)
+                               {"window_gather_kernel": 1}) / 1e3)
         pms_g.append(cuda_ms(lambda: sparse.gather_windows_reference(*a), 5))
         bm, bb = gather_bound(n, wh, ww, swh, sww)
         b_g.append(bm)
@@ -1356,8 +1536,17 @@ def main() -> int:
         check(plain == 0, f"plain versions ran {plain}x")
         check(all(n > 0 for n in counts.values()),
               f"a kernel variant never launched: {counts}")
-        check(blur.kernel_launches > 0, "the pyrDown kernel never launched")
+        check(blur.kernel_launches == VIDEO_PYRAMIDS,
+              f"pyramid launches {blur.kernel_launches} != one per build "
+              f"({VIDEO_PYRAMIDS})")
         counts["pyr_down"] = blur.kernel_launches
+        with plain_pyramid():
+            ref = dense.dense_pyramidal_lk_video(frames, cfg, dcfg)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(out, ref)),
+              f"{label}: the video's flow, min_eig or valid differ with the "
+              f"plain pyramid")
+        del ref
         if launches is None:
             launches = counts
         video_pair0[label] = out.flow[0].clone()
@@ -1368,7 +1557,8 @@ def main() -> int:
               and out.valid.dtype == torch.bool, "stats shape/dtype")
         epe = mean_epe(flow, a)
         print(f"[main] {label}: {FRAMES} frames -> flow {flow.shape}, "
-              f"launches {counts}, plain calls {plain}, "
+              f"launches {counts}, plain calls {plain}, flow, min_eig and "
+              f"valid == the run with the plain pyramid, "
               f"valid {float(out.valid.float().mean()):.4f}, mean EPE vs "
               f"ground truth {epe:.4f} px (limit {EPE_LIMIT})")
         check(epe < EPE_LIMIT, f"{label}: EPE {epe} >= {EPE_LIMIT}")
@@ -1384,12 +1574,11 @@ def main() -> int:
         # dense.py looks its kernels' wrappers up at call time: point them
         # at the plain versions for this run only
         dense.fused_lk_level = lk.fused_lk_level_reference
-        dense.pyr_down = blur.pyr_down_reference
         try:
-            run_video()
+            with plain_pyramid():
+                run_video()
         finally:
             dense.fused_lk_level = lk.fused_lk_level
-            dense.pyr_down = blur.pyr_down
 
     times = {"plain": [], "kernel": []}
     for which in ("plain", "kernel", "kernel", "plain"):
@@ -1404,10 +1593,10 @@ def main() -> int:
           f" (one pair = one output flow field)  [{card}]")
     if profile:
         profile_run("video", run_video, card)
-        level_anatomy(stacks, plan, cfg, card)
-    del frames, stacks
+    del frames
 
     # --- 6. per-pair kernels vs plain at the paths' shapes -------------------
+    pyr_kernel = pyramid_phase(frames0, cfg, card)
     p_kernels = perpair_kernels(frames0, cfg, card)
 
     # --- 7-8. paths A (entry()), B and C, counted ----------------------------
@@ -1437,6 +1626,10 @@ def main() -> int:
           f"{max(rates) / 30:.1f} x 30 fps streams)  [{card}]")
     if profile:
         profile_serving(staging, card)
+        # last: once the anatomy copies' CUDA modules are loaded, the
+        # profiler loses launches of later traces (seen on the card)
+        level_anatomy(stacks, plan, cfg, card)
+    del stacks
 
     report = {"kernels": [
         {"name": f"fused_lk_level[{v}]", "route": "cuda", "source": SOURCE,
@@ -1451,8 +1644,8 @@ def main() -> int:
         for v in REPLACES]}
     for k in s_kernels:
         report["kernels"].append(dict(k, launches=s_launches[k["name"]]))
-    path_of = {"pyr_down": "A", "local_warp": "B",
-               "fused_lk_level_precomputed": "B"}
+    report["kernels"].append(dict(pyr_kernel, launches=launches["pyr_down"]))
+    path_of = {"local_warp": "B", "fused_lk_level_precomputed": "B"}
     for k in p_kernels:
         report["kernels"].append(dict(
             k, launches=p_launches[path_of[k["name"]]][k["name"]]))

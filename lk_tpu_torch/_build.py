@@ -8,6 +8,11 @@ a shared library with a plain C interface that ``ctypes`` loads.  A later
 process with the same sources loads the library it finds.  Nothing is
 downloaded; ``nvcc`` comes from ``CUDA_HOME``, ``PATH`` or the toolkit's
 default prefix.
+
+Every wrapper launches through ``launch``: the C launchers act on the
+calling thread's current device (``cudaFuncSetAttribute``, the occupancy
+queries, the launch itself), so ``launch`` makes the tensor's device
+current around the call and passes that device's current stream.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent
 SOURCES = ("csrc/fused_lk_level.cu", "csrc/finish.cu",
@@ -119,3 +126,18 @@ def library() -> ctypes.CDLL:
                 module.bind(lib)
             _lib = lib
     return _lib
+
+
+def error_string(code: int) -> str:
+    """The CUDA runtime's text for an error code of a C launcher."""
+    return _lib.lk_error_string(code).decode() if _lib is not None else "?"
+
+
+def launch(fn, t: torch.Tensor, name: str, *args) -> None:
+    """``fn(*args, stream)`` with ``t``'s device current and that device's
+    current stream; raises if the C launcher returns a CUDA error."""
+    with torch.cuda.device(t.device):
+        rc = fn(*args, torch.cuda.current_stream(t.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
+                           f"({error_string(rc)})")

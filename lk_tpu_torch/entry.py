@@ -4,8 +4,8 @@ program, per-pair dense pyramidal LK at 1080p, with its example inputs.
 ``entry()`` returns ``(fn, (prev, next))``: ``fn`` runs
 ``dense_pyramidal_lk(...).flow`` with the production config,
 ``DenseLKConfig(use_pallas_warp=True, pallas_pyramid=True)`` and
-``LKConfig()`` defaults (the pyramid base pre-padded to 1088x2048, one
-pyrDown launch per level for the pair, the grads-fused level at every
+``LKConfig()`` defaults (the pyramid base pre-padded to 1088x2048, the
+pair's pyramid in one kernel launch, the grads-fused level at every
 level), and the inputs are the same 1080x1920 frames as lk_tpu's,
 ``np.random.default_rng(0)`` noise times 255, float32.  The config does
 not depend on the device: the device only picks the kernels (CUDA) or

@@ -20,7 +20,7 @@ coarse-to-fine.  A level runs one of three forms, chosen per level as
 Functions that take tensors run where their inputs are (the tensor's
 device is the caller's choice): CPU tensors through the plain PyTorch
 versions, CUDA tensors through the hand-written CUDA kernels (the levels
-above and the pyramid's ``pyr_down``).  The one entry point that takes
+above and the pyramid, ``build_pyramid``).  The one entry point that takes
 numpy, ``levels_from_numpy``, puts its tensors on the card
 (``device="cuda"``) unless the caller names another device.
 
@@ -44,7 +44,7 @@ from lk_tpu_torch.flow.lk_kernels import (fused_lk_level, pick_tile_w,
                                           HALO)
 from lk_tpu_torch.flow.warp_kernels import (fused_lk_level_precomputed,
                                             local_warp)
-from lk_tpu_torch.ops.blur import pyr_down
+from lk_tpu_torch.ops.blur import build_pyramid, edge_pad
 from lk_tpu_torch.ops.boxfilter import box_sum
 from lk_tpu_torch.ops.gradients import scharr_derivatives
 from lk_tpu_torch.ops.resize import upsample2_linear
@@ -126,16 +126,6 @@ def pallas_level_geometry(
     return grads_resident, th, tw, hp, wp
 
 
-def _edge_pad(x: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
-    """Edge-replicate the trailing (H, W) axes of x out to (hp, wp)."""
-    h, w = x.shape[-2:]
-    if (hp, wp) == (h, w):
-        return x
-    ri = torch.arange(hp, device=x.device).clamp(max=h - 1)
-    ci = torch.arange(wp, device=x.device).clamp(max=w - 1)
-    return x.index_select(-2, ri).index_select(-1, ci)
-
-
 def dense_lk_level(
     prev: torch.Tensor,
     next_: torch.Tensor,
@@ -170,7 +160,7 @@ def dense_lk_level(
     tiled = dense_cfg.use_pallas_warp or dense_cfg.use_pallas_fused
     if tiled:
         _, th, tw, hp, wp = pallas_level_geometry(h0, w0, dense_cfg)
-        prev, next_, flow = (_edge_pad(x, hp, wp)
+        prev, next_, flow = (edge_pad(x, hp, wp)
                              for x in (prev, next_, flow))
 
     # the fused kernel's b sums see edge-replicated halos, so its A does too
@@ -242,10 +232,10 @@ def _grads_fused_level(prev, next_, flow_init, cfg, dense_cfg, r_disp,
             raise ValueError("coarse-chain levels must be pad-free")
         flow_in = coarse_planes_init.to(torch.float32)
     else:
-        flow_in = _edge_pad(flow_init.to(torch.float32).movedim(-1, 0),
+        flow_in = edge_pad(flow_init.to(torch.float32).movedim(-1, 0),
                             hp, wp)
     flow, min_eig, valid = fused_lk_level(
-        _edge_pad(prev, hp, wp)[None], _edge_pad(next_, hp, wp)[None],
+        edge_pad(prev, hp, wp)[None], edge_pad(next_, hp, wp)[None],
         flow_in[None].contiguous(), tile_h=th, tile_w=tw, max_disp=r_disp,
         local=dense_cfg.warp_local, n_iters=dense_cfg.outer_iters,
         coarse_in=coarse_planes_init is not None,
@@ -303,10 +293,10 @@ def dense_pyramidal_lk(
 ) -> DenseFlowResult:
     """Coarse-to-fine dense LK over one (H, W) pair; returns level-0 flow.
 
-    The two pyramids are built as one (2, H, W) stack, so each level is one
-    ``pyr_down`` call (one kernel launch on the card) for the pair; under
-    ``pallas_pyramid`` the base is first edge-padded to
-    ``pyramid_base_geometry``."""
+    The two pyramids are built as one (2, H, W) stack: one
+    ``build_pyramid`` call (one kernel launch on the card) for the pair,
+    its base edge-padded to ``pyramid_base_geometry`` under
+    ``pallas_pyramid``."""
     cfg = _effective_cfg(cfg, dense_cfg, prev.shape[-2:])
     h_true, w_true = prev.shape[-2:]
     pair = build_frame_levels(
@@ -351,16 +341,14 @@ def build_frame_levels(
     dense_cfg: DenseLKConfig = DenseLKConfig(),
 ) -> tuple:
     """Pyramid levels of a frame, or of a (N, H, W) stack of frames: the
-    base edge-padded to ``pyramid_base_geometry``, then ``pyr_down``."""
+    base edge-padded to ``pyramid_base_geometry``, then ``pyr_down`` per
+    level, as one ``build_pyramid`` call."""
     if dense_cfg.padded_build:
         raise NotImplementedError(_LEFT_OUT.format("padded_build"))
     cfg = _effective_cfg(cfg, dense_cfg, frame.shape[-2:])
     h_true, w_true = frame.shape[-2:]
     hp, wp = pyramid_base_geometry(h_true, w_true, cfg, dense_cfg)
-    levels = [_edge_pad(frame.to(torch.float32), hp, wp)]
-    for _ in range(cfg.max_level):
-        levels.append(pyr_down(levels[-1], fast=dense_cfg.fast_pyramid))
-    return tuple(levels)
+    return build_pyramid(frame, cfg.max_level, (hp, wp))
 
 
 class _LevelPlan(NamedTuple):
@@ -526,7 +514,7 @@ def dense_flow_chunk_prepadded(
     fused-level call over all K pairs.  frames_chunk: (K+1, H, W).
 
     Per pair bit-identical to the per-frame chain: the level runs the same
-    per-pixel arithmetic whatever K, and ``pyr_down`` is elementwise over
+    per-pixel arithmetic whatever K, and ``build_pyramid`` is elementwise over
     the frame axis."""
     cfg = _effective_cfg(cfg, dense_cfg, true_hw)
     h_true, w_true = true_hw
@@ -711,7 +699,7 @@ def dense_flow_from_levels(
     else:
         flow = init_flow.to(torch.float32)
         if tuple(flow.shape[:2]) != (h_top, w_top):
-            flow = _edge_pad(flow.movedim(-1, 0), h_top, w_top).movedim(0, -1)
+            flow = edge_pad(flow.movedim(-1, 0), h_top, w_top).movedim(0, -1)
 
     level_cfgs = level_configs(dense_cfg, top)
 

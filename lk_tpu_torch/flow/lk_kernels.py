@@ -192,7 +192,6 @@ def _fused_lk_level_cuda(prev, nxt, flow, *, tile_h, tile_w, max_disp, local,
         if write_stats else None
     thr = float(min_eig_threshold) * 1024.0
     ch, cw = (h // 2, w // 2) if coarse_in else (0, 0)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     key = variant(k, h, w, tile_h, tile_w, coarse_in)
     cur = None if coarse_in else init
     bufs = []
@@ -202,18 +201,15 @@ def _fused_lk_level_cuda(prev, nxt, flow, *, tile_h, tile_w, max_disp, local,
                                     device=dev))
         out = bufs[it % 2]
         stats = it == 0 and write_stats
-        rc = lib.lk_fused_level_launch(
+        _build.launch(
+            lib.lk_fused_level_launch, prev, "fused_lk_level",
             prev.data_ptr(), ps, nxt.data_ptr(), ns,
             cur.data_ptr() if cur is not None else None, init.data_ptr(),
             out.data_ptr(),
             me.data_ptr() if stats else None,
             va.data_ptr() if stats else None,
             k, h, w, ch, cw, tile_h, tile_w, int(coarse_in), local, win_k,
-            float(max_disp), thr, shape, stream)
-        if rc != 0:
-            raise RuntimeError(
-                "fused_lk_level kernel launch failed: CUDA error "
-                f"{rc} ({lib.lk_error_string(rc).decode()})")
+            float(max_disp), thr, shape)
         kernel_launches_by_variant[key] += 1
         cur = out
     return cur, me, va

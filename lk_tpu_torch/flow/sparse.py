@@ -13,7 +13,8 @@ The window gather is ``gather_windows``, the counterpart of
 ``gather_windows_reference`` (full-frame Scharr of the folded level, then
 index gathers — the JAX package's ``pallas_windows=False`` path).  The two
 agree bit for bit.  ``LKConfig.pallas_windows`` and ``fast_pyramid`` are
-accepted and ignored: the pyramid is always the exact f32 ``pyr_down``.
+accepted and ignored: the pyramid is always the exact f32 pyrDown of
+``build_pyramid`` (one kernel launch per fold on the card).
 
 Translation notes:
 
@@ -38,7 +39,7 @@ import torch
 from torch.profiler import record_function
 
 from lk_tpu_torch.config import LKConfig
-from lk_tpu_torch.ops.blur import pyr_down, reflect101_index
+from lk_tpu_torch.ops.blur import build_pyramid, reflect101_index
 from lk_tpu_torch.ops.gradients import scharr_derivatives
 
 # superwindow of `next` fetched per point per level (lk_tpu's _SW_ROWS/COLS)
@@ -138,14 +139,10 @@ def _gather_windows_cuda(prev_f, next_f, cy, cx, sy, sx, win_h, win_w, sw_h,
     raw = torch.empty((n, 3, win_h + 1, win_w + 1), dtype=torch.float32,
                       device=dev)
     sw = torch.empty((n, sw_h, sw_w), dtype=torch.float32, device=dev)
-    rc = lib.lk_window_gather_launch(
-        prev_f.data_ptr(), next_f.data_ptr(),
-        *(t.data_ptr() for t in corners), raw.data_ptr(), sw.data_ptr(),
-        n, fh, fw, win_h, win_w, sw_h, sw_w,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"window gather kernel launch failed: CUDA error "
-                           f"{rc} ({lib.lk_error_string(rc).decode()})")
+    _build.launch(lib.lk_window_gather_launch, prev_f, "window gather",
+                  prev_f.data_ptr(), next_f.data_ptr(),
+                  *(t.data_ptr() for t in corners), raw.data_ptr(),
+                  sw.data_ptr(), n, fh, fw, win_h, win_w, sw_h, sw_w)
     kernel_launches += 1
     return raw, sw
 
@@ -201,9 +198,7 @@ def fold_tracking_levels(imgs: torch.Tensor, cfg: LKConfig = LKConfig(),
     only that band plus ``_BAND_MARGIN`` rows per side.  The pyramid is
     decimated before the crop."""
     pad = max(cfg.win_size) + 2
-    levels = [imgs.to(torch.float32)]
-    for _ in range(cfg.max_level):
-        levels.append(pyr_down(levels[-1]))
+    levels = build_pyramid(imgs, cfg.max_level)
     bands = _level_row_bands(imgs.shape[1], cfg, row_band)
     return tuple(_fold(lv, bd, pad) for lv, bd in zip(levels, bands))
 

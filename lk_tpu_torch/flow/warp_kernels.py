@@ -88,12 +88,6 @@ def _check_level(nxt, flow, tile_h, tile_w, local, planes=()):
                   nxt.device)
 
 
-def _raise_on(rc: int, lib, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
-                           f"({lib.lk_error_string(rc).decode()})")
-
-
 def _dispatch(t: torch.Tensor, name: str) -> bool:
     """True for the kernel (a CUDA tensor), False for the plain version."""
     if t.device.type == "cpu":
@@ -122,11 +116,10 @@ def local_warp(nxt: torch.Tensor, flow: torch.Tensor, *, max_disp: int,
     nxt, flow = nxt.contiguous(), flow.contiguous()
     h, w = nxt.shape
     out = torch.empty((h, w), dtype=torch.float32, device=nxt.device)
-    rc = lib.lk_local_warp_launch(
-        nxt.data_ptr(), flow[0].data_ptr(), flow[1].data_ptr(),
-        out.data_ptr(), h, w, tile_h, tile_w, local, float(max_disp),
-        torch.cuda.current_stream(nxt.device).cuda_stream)
-    _raise_on(rc, lib, "local_warp")
+    _build.launch(lib.lk_local_warp_launch, nxt, "local_warp",
+                  nxt.data_ptr(), flow[0].data_ptr(), flow[1].data_ptr(),
+                  out.data_ptr(), h, w, tile_h, tile_w, local,
+                  float(max_disp))
     kernel_launches["local_warp"] += 1
     return out
 
@@ -195,18 +188,17 @@ def fused_lk_level_precomputed(
     held = [t.contiguous() for _, t in planes]  # alive until the launches
     ptrs = [t.data_ptr() for t in held]
     h, w = nxt.shape
-    stream = torch.cuda.current_stream(nxt.device).cuda_stream
     cur, bufs = init, []
     for it in range(n_iters):
         if len(bufs) < 2:
             bufs.append(torch.empty((2, h, w), dtype=torch.float32,
                                     device=nxt.device))
         out = bufs[it % 2]
-        rc = lib.lk_fused_level_pre_launch(
+        _build.launch(
+            lib.lk_fused_level_pre_launch, nxt, "fused_lk_level_precomputed",
             nxt.data_ptr(), *ptrs, cur.data_ptr(), init.data_ptr(),
             out.data_ptr(), h, w, tile_h, tile_w, local, win_k,
-            right_spill(tile_w) if it else 0, float(max_disp), stream)
-        _raise_on(rc, lib, "fused_lk_level_precomputed")
+            right_spill(tile_w) if it else 0, float(max_disp))
         kernel_launches["fused_lk_level_precomputed"] += 1
         cur = out
     return cur

@@ -18,11 +18,14 @@ decimates bit-identically to the frames one at a time — which a
 convolution library does not promise (it may choose a different algorithm
 for a batch than for one frame).
 
-``pyr_down`` dispatches on the device of its input: a CPU tensor goes to
-``pyr_down_reference`` (the plain version above), a CUDA tensor to the
-pyrDown kernel ``lk_tpu_torch/csrc/pyr_down.cu`` — one launch for all the
-leading dims' planes, bit-equal to the plain version — with no fallback
-between the two.
+``build_pyramid`` is a whole pyramid: the base edge-replicated out to a
+padded size (``edge_pad``), then pyrDown per level.  It and ``pyr_down``
+dispatch on the device of their input: a CPU tensor goes to the plain
+version (``build_pyramid_reference``, ``pyr_down_reference``), a CUDA
+tensor to the pyramid kernel ``lk_tpu_torch/csrc/pyr_down.cu`` — one
+launch for the pad and every level of all the leading dims' planes
+(``pyr_down`` is its one-level, no-pad call), bit-equal to the plain
+version — with no fallback between the two.
 """
 
 from __future__ import annotations
@@ -35,7 +38,8 @@ import torch
 _GAUSS3 = (0.25, 0.5, 0.25)
 _GAUSS5 = (1 / 16, 4 / 16, 6 / 16, 4 / 16, 1 / 16)
 
-# Launches of the pyrDown kernel, and calls of the plain version.
+# Launches of the pyramid kernel (one per build_pyramid or pyr_down call),
+# and calls of the plain versions.
 kernel_launches = 0
 plain_calls = 0
 
@@ -104,6 +108,61 @@ def _filter_decimate(x: torch.Tensor, dim: int) -> torch.Tensor:
     return out
 
 
+def edge_pad(x: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
+    """Edge-replicate the trailing (H, W) axes of x out to (hp, wp); x
+    itself when it has that size."""
+    h, w = x.shape[-2:]
+    if (hp, wp) == (h, w):
+        return x
+    ri = torch.arange(hp, device=x.device).clamp(max=h - 1)
+    ci = torch.arange(wp, device=x.device).clamp(max=w - 1)
+    return x.index_select(-2, ri).index_select(-1, ci)
+
+
+def _pyramid_geometry(frames: torch.Tensor, n_levels: int, pad_hw):
+    """(hp, wp) of the base, after checking the arguments."""
+    if frames.ndim < 2 or frames.numel() == 0:
+        raise ValueError(f"a pyramid takes (..., H, W) planes, got "
+                         f"{tuple(frames.shape)}")
+    h, w = frames.shape[-2:]
+    hp, wp = (h, w) if pad_hw is None else map(int, pad_hw)
+    if hp < h or wp < w:
+        raise ValueError(f"pad_hw {(hp, wp)} smaller than the frames "
+                         f"{(h, w)}")
+    if n_levels < 0 or (n_levels == 0 and (hp, wp) != (h, w)):
+        raise ValueError(f"{n_levels} levels (a padded base needs >= 1)")
+    return hp, wp
+
+
+def build_pyramid(frames: torch.Tensor, n_levels: int,
+                  pad_hw: tuple[int, int] | None = None) -> tuple:
+    """Pyramid of (..., h, w) planes: the base edge-replicated out to
+    ``pad_hw`` (default: no pad), then ``n_levels`` pyrDown levels, each
+    (..., ceil(h_l/2), ceil(w_l/2)) float32.  When the base needs no pad,
+    level 0 is ``frames.to(float32)`` itself."""
+    if frames.device.type == "cpu":
+        return build_pyramid_reference(frames, n_levels, pad_hw)
+    if frames.device.type != "cuda":
+        raise ValueError(f"build_pyramid: unsupported device "
+                         f"{frames.device}")
+    return _pyramid_cuda(frames, n_levels, pad_hw)
+
+
+def build_pyramid_reference(frames: torch.Tensor, n_levels: int,
+                            pad_hw: tuple[int, int] | None = None) -> tuple:
+    """Plain PyTorch form of ``build_pyramid``: ``edge_pad``, then the
+    plain pyrDown per level."""
+    global plain_calls
+    hp, wp = _pyramid_geometry(frames, n_levels, pad_hw)
+    if n_levels == 0:
+        return (frames.to(torch.float32),)
+    plain_calls += 1
+    levels = [edge_pad(frames.to(torch.float32), hp, wp)]
+    for _ in range(n_levels):
+        levels.append(_pyr_down_plain(levels[-1]))
+    return tuple(levels)
+
+
 def pyr_down(img: torch.Tensor, fast: bool = False) -> torch.Tensor:
     """One pyramid level down over the trailing (H, W) axes:
     (..., H, W) -> (..., ceil(H/2), ceil(W/2)) float32.
@@ -116,44 +175,59 @@ def pyr_down(img: torch.Tensor, fast: bool = False) -> torch.Tensor:
         return pyr_down_reference(img, fast)
     if img.device.type != "cuda":
         raise ValueError(f"pyr_down: unsupported device {img.device}")
-    return _pyr_down_cuda(img)
+    return _pyramid_cuda(img, 1, None)[1]
 
 
 def pyr_down_reference(img: torch.Tensor, fast: bool = False) -> torch.Tensor:
-    """Plain PyTorch form of ``pyr_down`` (same signature): rows filtered
-    and decimated first, then columns."""
+    """Plain PyTorch form of ``pyr_down`` (same signature)."""
     global plain_calls
     del fast
     plain_calls += 1
+    return _pyr_down_plain(img)
+
+
+def _pyr_down_plain(img: torch.Tensor) -> torch.Tensor:
+    """Rows filtered and decimated first, then columns."""
     x = img.to(torch.float32)
     return _filter_decimate(_filter_decimate(x, -2), -1)
 
 
-def _pyr_down_cuda(img: torch.Tensor) -> torch.Tensor:
+def _pyramid_cuda(frames: torch.Tensor, n_levels: int, pad_hw,
+                  blocks_per_sm: int = 0) -> tuple:
+    """The kernel's launch.  ``blocks_per_sm`` caps its cooperative grid
+    below the resident maximum (0: no cap); every grid gives the same
+    bits."""
     global kernel_launches
     from lk_tpu_torch import _build
 
-    if img.ndim < 2 or img.numel() == 0:
-        raise ValueError(f"pyr_down takes (..., H, W) planes, got "
-                         f"{tuple(img.shape)}")
-    h, w = img.shape[-2:]
-    x = img.to(torch.float32).reshape(-1, h, w).contiguous()
-    n = x.shape[0]
-    out = torch.empty((n, (h + 1) // 2, (w + 1) // 2), dtype=torch.float32,
-                      device=x.device)
+    hp, wp = _pyramid_geometry(frames, n_levels, pad_hw)
+    x = frames.to(torch.float32)
+    if n_levels == 0:
+        return (x,)
+    lead, (h, w) = frames.shape[:-2], frames.shape[-2:]
+    planes = x.reshape(-1, h, w).contiguous()
+    n, dev = planes.shape[0], planes.device
+    base = None if (hp, wp) == (h, w) else torch.empty(
+        (n, hp, wp), dtype=torch.float32, device=dev)
+    outs, lh, lw = [], hp, wp
+    for _ in range(n_levels):
+        lh, lw = (lh + 1) // 2, (lw + 1) // 2
+        outs.append(torch.empty((n, lh, lw), dtype=torch.float32,
+                                device=dev))
+    ptrs = (ctypes.c_void_p * n_levels)(*(o.data_ptr() for o in outs))
     lib = _build.library()
-    rc = lib.lk_pyr_down_launch(
-        x.data_ptr(), out.data_ptr(), n, h, w,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"pyr_down kernel launch failed: CUDA error {rc} "
-                           f"({lib.lk_error_string(rc).decode()})")
+    _build.launch(lib.lk_pyramid_launch, planes, "pyramid",
+                  planes.data_ptr(),
+                  None if base is None else base.data_ptr(), ptrs, n, h, w,
+                  hp, wp, n_levels, blocks_per_sm)
     kernel_launches += 1
-    return out.reshape(*img.shape[:-2], *out.shape[-2:])
+    first = x if base is None else base.reshape(*lead, hp, wp)
+    return (first,) + tuple(o.reshape(*lead, *o.shape[-2:]) for o in outs)
 
 
 def bind(lib: ctypes.CDLL) -> None:
     """Declare the C interface of ``csrc/pyr_down.cu``."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lk_pyr_down_launch.argtypes = [p, p, i, i, i, p]
-    lib.lk_pyr_down_launch.restype = i
+    lib.lk_pyramid_launch.argtypes = [p, p, ctypes.POINTER(p)] + [i] * 7 \
+        + [p]
+    lib.lk_pyramid_launch.restype = i

@@ -76,13 +76,9 @@ def _fused_finish_cuda(x: torch.Tensor, contrast: bool) -> torch.Tensor:
     n, h, w = x.shape
     out = torch.empty((n, h, w), dtype=torch.float32, device=x.device)
     k, b0, b1 = tone_constants()
-    rc = lib.lk_finish_launch(
-        x.data_ptr(), int(x.dtype == torch.uint8), out.data_ptr(), n, h, w,
-        int(contrast), k, b0, b1,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"finish kernel launch failed: CUDA error {rc} "
-                           f"({lib.lk_error_string(rc).decode()})")
+    _build.launch(lib.lk_finish_launch, x, "finish", x.data_ptr(),
+                  int(x.dtype == torch.uint8), out.data_ptr(), n, h, w,
+                  int(contrast), k, b0, b1)
     kernel_launches += 1
     return out
 

@@ -183,7 +183,8 @@ def test_window_gather_matches_plain(cuda_device, win, sw):
 def test_serving_kernels_match_plain_path(cuda_device):
     """A small batched serving run through both kernels equals the same run
     through their plain versions; kernel A launches once per feed, kernel
-    B three times (once per level) per processed frame."""
+    B three times (once per level) per processed frame, the pyramid once
+    per fold."""
     import dataclasses
 
     from lk_tpu_torch.models import PRESETS
@@ -207,9 +208,12 @@ def test_serving_kernels_match_plain_path(cuda_device):
 
     finish.reset_counters()
     sparse.reset_counters()
+    blur.reset_counters()
     kern = run()
     assert (finish.kernel_launches, finish.plain_calls) == (2, 0)
     assert (sparse.kernel_launches, sparse.plain_calls) == (3 * 8, 0)
+    # the tracker's pyramid: once for the chunk's seed, once per frame
+    assert (blur.kernel_launches, blur.plain_calls) == (1 + 8, 0)
     old = finish.fused_finish, sparse.gather_windows
     finish.fused_finish = finish.fused_finish_reference
     sparse.gather_windows = sparse.gather_windows_reference
@@ -222,12 +226,93 @@ def test_serving_kernels_match_plain_path(cuda_device):
         assert p.cross_points == q.cross_points
 
 
+# (frames shape, pad_hw or None, levels)
+PYRAMID_CASES = {
+    # the 1080p base's seam: L1 rows 540-543 read pad rows replicating
+    # row 1079, reflected at 1088
+    "seam_1080p": ((1, 1080, 1920), (1088, 2048), 3),
+    "seam_small": ((2, 10, 24), (16, 32), 2),
+    "pad_cols_only": ((2, 40, 130), (40, 192), 2),
+    "odd": ((3, 483, 861), None, 3),           # 483 -> 242 -> 121 -> 61
+    "odd_padded": ((2, 37, 53), (41, 70), 4),
+    "one_row": ((2, 1, 300), None, 2),
+    "one_col": ((2, 300, 1), None, 2),
+    "down_to_1x1": ((3, 17, 30), None, 5),
+    "planes_64": ((64, 96, 172), None, 2),     # the tracker's batch, small
+    "plane_1": ((1, 96, 172), None, 1),
+    "pad_is_input": ((2, 64, 128), (64, 128), 4),
+    "levels_1_padded": ((2, 50, 100), (64, 128), 1),
+    "frame_2d": ((50, 70), (64, 128), 2),
+    "unaligned": ((3, 61, 127), (64, 130), 3),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks_per_sm", [0, 1])
+@pytest.mark.parametrize("case", list(PYRAMID_CASES))
+def test_pyramid_matches_plain(cuda_device, case, blocks_per_sm):
+    """The pyramid kernel: every level (the padded base included) bit-equal
+    to the plain version in one launch, with the resident grid and with
+    one block per SM (the grid-stride walk and the grid barrier with many
+    tiles per block); an unpadded base is the input itself."""
+    shape, pad, levels = PYRAMID_CASES[case]
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.random(shape, dtype=np.float32) * 255).to(
+        cuda_device)
+    blur.reset_counters()
+    got = (blur.build_pyramid(x, levels, pad) if blocks_per_sm == 0 else
+           blur._pyramid_cuda(x, levels, pad, blocks_per_sm=blocks_per_sm))
+    assert (blur.kernel_launches, blur.plain_calls) == (1, 0)
+    want = blur.build_pyramid_reference(x, levels, pad)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == levels + 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert torch.equal(g, w)
+    if pad is None or tuple(pad) == tuple(shape[-2:]):
+        assert got[0] is x
+
+
+@pytest.mark.cuda
+def test_pyramid_frames_one_at_a_time(cuda_device):
+    """A 5-frame stack equals its frames one at a time, bit for bit."""
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.random((5, 70, 300), dtype=np.float32) * 255
+                         ).to(cuda_device)
+    stacked = blur.build_pyramid(x, 3, (80, 384))
+    for i in range(5):
+        for a, b in zip(stacked, blur.build_pyramid(x[i], 3, (80, 384))):
+            assert torch.equal(a[i], b)
+
+
+@pytest.mark.cuda
+def test_launch_on_the_tensor_device():
+    """Every kernel runs on its tensor's card while another is current."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    dev = torch.device("cuda", 1)
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.random((2, 70, 300), dtype=np.float32) * 255)
+    u8 = torch.from_numpy(rng.integers(0, 256, (2, 37, 53)).astype(np.uint8))
+    x, u8 = x.to(dev), u8.to(dev)
+    with torch.cuda.device(0):
+        got = blur.build_pyramid(x, 3, (80, 384))
+        fin = finish.fused_finish(u8, True)
+        want = blur.build_pyramid_reference(x, 3, (80, 384))
+        fin_want = finish.fused_finish_reference(u8, True)
+        torch.cuda.synchronize(dev)
+    assert all(t.device == dev for t in got) and fin.device == dev
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert torch.equal(fin, fin_want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 64, 128), (5, 37, 53), (3, 1, 9),
                                    (1, 2, 2), (2, 3, 483, 861)])
 def test_pyr_down_matches_plain(cuda_device, shape):
-    """The pyrDown kernel: bit-equal to the plain version for any leading
-    dims (one launch), odd sizes and the 1-row clamp."""
+    """pyrDown, the pyramid kernel's one-level call: bit-equal to the plain
+    version for any leading dims (one launch), odd sizes and the 1-row
+    clamp."""
     rng = np.random.default_rng(5)
     x = torch.from_numpy(rng.random(shape, dtype=np.float32) * 255).to(
         cuda_device)

@@ -176,15 +176,16 @@ def test_default_video_is_per_pair(clip):
 
 def test_path_a_per_pair_is_video_pair(clip):
     """Path A per pair (per-call chain, pair-stacked pyramid) equals the
-    chunked video chain's pairs bit for bit; each level's pyramid is one
-    pyr_down call for the pair, and only the plain versions run."""
+    chunked video chain's pairs bit for bit; the pair's pyramid (pad and
+    both decimations) is one build_pyramid call, and only the plain
+    versions run."""
     frames = torch.from_numpy(clip[:5, :82, :512].copy())
     tcfg, dcfg = port_cfg(CFG), port_cfg(PATHS["A"])
     video = td.dense_pyramidal_lk_video(frames, tcfg, dcfg)
     for mod in (blur, lk_kernels, warp_kernels):
         mod.reset_counters()
     one = td.dense_pyramidal_lk(frames[0], frames[1], tcfg, dense_cfg=dcfg)
-    assert blur.plain_calls == 2         # 3 levels: two decimations
+    assert blur.plain_calls == 1         # one pyramid: pad + 2 levels
     assert lk_kernels.plain_calls == 3
     assert sum(warp_kernels.plain_calls.values()) == 0
     for a, b in zip(video, one):
@@ -193,7 +194,8 @@ def test_path_a_per_pair_is_video_pair(clip):
 
 def test_path_b_counts(clip):
     """Path B's kernels per pair at 4 levels: the local warp once at each of
-    L0-L2, the precomputed level once (6 iterations) at the top."""
+    L0-L2, the precomputed level once (6 iterations) at the top, the
+    pair's pyramid once."""
     tcfg, dcfg = port_cfg(CFG), port_cfg(PATHS["B"])
     prv, nxt = map(torch.from_numpy, _pair(clip, 128, 384))
     for mod in (blur, lk_kernels, warp_kernels):
@@ -202,4 +204,4 @@ def test_path_b_counts(clip):
     assert warp_kernels.plain_calls == {"local_warp": 3,
                                         "fused_lk_level_precomputed": 1}
     assert lk_kernels.plain_calls == 0
-    assert blur.plain_calls == 3
+    assert blur.plain_calls == 1
