@@ -43,7 +43,9 @@ runs it.
      the grid capped at 1, 2 and 4 blocks per SM; the local warp
      at path B's padded L0-L2 with a zoom flow and outliers beyond +-local;
      the precomputed level at path B's top (136x240, 6 iterations) and
-     tiled (576x1024 on 64x512 tiles, 2 iterations); per call the
+     tiled (576x1024 on 64x512 tiles, 2 iterations), one launch per call,
+     torch.equal with every block shape at the resident grid and at one
+     block per SM, each timed; per call the
      kernels' own device time (torch.profiler) and the CUDA-event time,
      plain ms, bound, library call;
   7. path A: entry()'s fn on its own inputs, then on both scenes' first
@@ -52,8 +54,9 @@ runs it.
      the flow equal to the run with the plain pyramid and to the video
      chain's pair 0 bit for bit;
   8. paths B and C on both scenes' first pair, counted the same way (B:
-     pyramid 1, local warp 3, precomputed level 6; C: pyramid 1 only);
-     B's EPE < 0.1 px, C's printed;
+     pyramid 1, local warp 3, precomputed level 1; C: pyramid 1 only);
+     B's flow, min_eig and valid equal to the run with the plain
+     precomputed level; B's EPE < 0.1 px, C's printed;
   9. per-pair timing with CUDA events: ms per pair of paths A, B and C;
      with --profile also each path's host enqueue and device time by
      kernel group;
@@ -69,7 +72,8 @@ runs it.
      (tests/test_pipeline_e2e.py's bound); the first 4 streams run again
      through the plain versions on the card give the same csv rows;
  12. serving kernels vs plain at serving shapes: the finish on (1024, 483,
-     860) u8 with and without the tone curve and on an odd shape, the
+     860) u8 with and without the tone curve and on odd shapes (W % 4 !=
+     0, 2x2, 70,000 frames, f32, an unaligned base), torch.equal, the
      gather on the three folded levels of the 64-stream batch with the
      tracker's frame-major point set and a shuffled one; device and
      CUDA-event ms per launch;
@@ -91,6 +95,7 @@ from a directory without the package, it exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -179,6 +184,12 @@ SEPARATE_PAD_MS = {
                    "the base's edge pad not timed alone",
 }
 
+# The finish and the precomputed level before their redesign for Hopper
+# (PERF.md's kernel table, rows 8 and 10, PR 6's counted trace on an NVIDIA
+# H100 80GB HBM3 at 700 W), printed beside this run's.
+FINISH_PARENT = "one 1024x483x860 u8 chunk took 1.521 ms (PR 6's design)"
+PRE_PARENT = "path B's top took 0.127 ms in 6 launches (PR 6's design)"
+
 
 def configs():
     """The production config (bench.py's, and entry()'s path A):
@@ -202,23 +213,35 @@ def device():
     return torch.device("cuda", 0)
 
 
-def plain_pyramid():
-    """Context: the dense paths with the plain pyramid build (dense.py looks
-    ``build_pyramid`` up at call time), every other kernel unchanged."""
-    import contextlib
+@contextlib.contextmanager
+def patched(module, name, value):
+    """Context: ``module.name`` rebound to ``value`` (the dense paths look
+    their kernels' wrappers up at call time)."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
 
+
+def plain_pyramid():
+    """Context: the dense paths with the plain pyramid build, every other
+    kernel unchanged."""
     from lk_tpu_torch.flow import dense
     from lk_tpu_torch.ops import blur
 
-    @contextlib.contextmanager
-    def ctx():
-        dense.build_pyramid = blur.build_pyramid_reference
-        try:
-            yield
-        finally:
-            dense.build_pyramid = blur.build_pyramid
+    return patched(dense, "build_pyramid", blur.build_pyramid_reference)
 
-    return ctx()
+
+def plain_precomputed():
+    """Context: the dense paths with the plain precomputed-A level, every
+    other kernel unchanged."""
+    from lk_tpu_torch.flow import dense
+    from lk_tpu_torch.flow import warp_kernels as wk
+
+    return patched(dense, "fused_lk_level_precomputed",
+                   wk.fused_lk_level_precomputed_reference)
 
 
 def reset_counters() -> None:
@@ -754,28 +777,48 @@ def perpair_kernels(frames0, cfg, card, reps=20):
         args = (nxt, prev, ix, iy, a11, a12, a22, inv_det, flow)
         kw = dict(n_iters=iters, max_disp=disp, tile_h=th, tile_w=tw,
                   local=local, win_k=cfg.win_size[1])
-        e = cmp(wk.fused_lk_level_precomputed(*args, **kw),
-                wk.fused_lk_level_precomputed_reference(*args, **kw),
+        want = wk.fused_lk_level_precomputed_reference(*args, **kw)
+        e = cmp(wk.fused_lk_level_precomputed(*args, **kw), want,
                 f"fused_lk_level_precomputed {label}")
         err_f = max(err_f, e)
         ms = cuda_ms(lambda: wk.fused_lk_level_precomputed(*args, **kw),
                      reps)
         dev_us = device_us(lambda: wk.fused_lk_level_precomputed(
-            *args, **kw), {"fused_level_pre_kernel": iters})
+            *args, **kw), {"fused_level_pre_kernel": 1})
         pms = cuda_ms(lambda: wk.fused_lk_level_precomputed_reference(
             *args, **kw), 3)
+        # each block shape forced, at the resident grid and at one block
+        # per SM (regions then restaged every iteration): same bits
+        variants = []
+        for shape, (bh, bw) in enumerate(wk.PRE_BLOCK_SHAPES):
+            for bps in (0, 1):
+                def run(shape=shape, bps=bps):
+                    return wk._fused_level_pre_cuda(
+                        *args, **kw, shape=shape, blocks_per_sm=bps)
+                check(torch.equal(run(), want), f"fused_lk_level_precomputed"
+                      f" {label} {bh}x{bw} blocks_per_sm {bps}: differs")
+                us = device_us(run, {"fused_level_pre_kernel": 1})
+                variants.append(f"{bh}x{bw}{' 1/SM' if bps else ''} "
+                                f"{us:.1f} us")
         # the 8 read-only planes and the initial flow read once, the flow
         # written once (the iterations' ping-pong stays in L2); the
         # operations once per iteration
         bm, bb = bound(hp * wp * (8 + 2 + 2) * 4,
                        iters * hp * wp * PRE_OPS_PX)
         print(f"[kernel] fused_lk_level_precomputed {label} x{iters} "
-              f"(local {local}, disp {disp}): max|d| {e:.3g} px; kernel "
-              f"device {dev_us:.1f} us ({dev_us / iters:.1f} per launch; "
-              f"events {ms:.4f} ms), plain {pms:.3f} ms, bound {bm:.5f} ms "
-              f"({bb})  [{card}]")
+              f"(local {local}, disp {disp}): max|d| {e:.3g} px, torch.equal;"
+              f" kernel device {dev_us:.1f} us in one launch (events "
+              f"{ms:.4f} ms), plain {pms:.3f} ms, bound {bm:.5f} ms ({bb}); "
+              f"each block shape and grid (same bits): {', '.join(variants)}"
+              f"  [{card}]")
         if entry is None:            # path B's own call: the report entry
             entry = (dev_us / 1e3, ms, pms, bm, bb)
+            one = device_us(lambda: wk.fused_lk_level_precomputed(
+                *args, **dict(kw, n_iters=1)), {"fused_level_pre_kernel": 1})
+            print(f"[kernel] fused_lk_level_precomputed {label}: "
+                  f"{PRE_PARENT}; this run {dev_us:.1f} us: one iteration "
+                  f"alone {one:.1f} us, each later one with its grid "
+                  f"barrier {(dev_us - one) / (iters - 1):.1f} us  [{card}]")
     return [
         {"name": "local_warp", "route": "cuda",
          "source": "lk_tpu_torch/csrc/local_warp.cu",
@@ -943,7 +986,7 @@ def pyramid_phase(frames0, cfg, card, reps=20):
 
 EXPECT = {   # launches per pair at 1080p; every other count 0
     "A": {"pyr_down": 1, "resident": 6, "tiled": 3},
-    "B": {"pyr_down": 1, "local_warp": 3, "fused_lk_level_precomputed": 6},
+    "B": {"pyr_down": 1, "local_warp": 3, "fused_lk_level_precomputed": 1},
     "C": {"pyr_down": 1},
 }
 
@@ -1007,9 +1050,19 @@ def perpair_paths(scenes, video_pair0, cfg, card):
                   f"path {name} {label}: flow {tuple(flow.shape)}")
             epe = mean_epe(flow[None].cpu().numpy(), a)
             limit = f" (limit {EPE_LIMIT})" if name == "B" else ""
+            same = ""
+            if name == "B":
+                with plain_precomputed():
+                    ref = dense.dense_pyramidal_lk(pair[0], pair[1], cfg,
+                                                   None, path_cfg(name))
+                check(all(torch.equal(x, y) for x, y in zip(res, ref)),
+                      f"path B {label}: the flow, min_eig or valid differ "
+                      f"with the plain precomputed level")
+                same = (", flow, min_eig and valid == the run with the "
+                        "plain precomputed level")
             print(f"[path {name}] {label}: launches {counts}, plain calls "
                   f"0, valid {float(res.valid.float().mean()):.4f}, mean "
-                  f"EPE {epe:.4f} px{limit}")
+                  f"EPE {epe:.4f} px{limit}{same}")
             if name == "B":
                 check(epe < EPE_LIMIT, f"path B {label}: EPE {epe}")
     return result
@@ -1268,19 +1321,36 @@ def serving_kernels(staging, card, reps=20):
         check(bool(torch.isfinite(a).all()), "non-finite kernel output")
         return float((a - b).abs().max())
 
-    # --- finish: a whole chunk (64 streams x 16 frames), and odd shapes ---
+    # --- finish: a whole chunk (64 streams x 16 frames), and odd shapes:
+    # H*W % 4 != 0, W % 4 != 0 (per-column loads), 2x2, more frames than a
+    # grid dimension holds, f32 frames, a base not aligned for the vector
+    # loads ---
     chunk = staging[1:1 + S_CHUNK].reshape(-1, SH, SW)
-    odd = staging[:3, 0, :37, :53].contiguous()
+    rng = np.random.default_rng(12)
+    flat = torch.from_numpy(rng.integers(0, 256, 1 + 3 * 37 * 132).astype(
+        np.uint8)).to(chunk.device)
+    cases = [(chunk, f"{tuple(chunk.shape)} u8"),
+             (staging[:3, 0, :37, :53].contiguous(), "(3, 37, 53) u8"),
+             (torch.cat([staging[0, :1], staging[0, :1, :, :1]], -1),
+              "(1, 483, 861) u8"),
+             (staging[:2, 0, :2, :2].contiguous(), "(2, 2, 2) u8"),
+             (torch.from_numpy(rng.integers(0, 256, (70000, 2, 4)).astype(
+                 np.uint8)).to(chunk.device), "(70000, 2, 4) u8"),
+             (chunk[:64].to(torch.float32), "(64, 483, 860) f32"),
+             (flat[1:].view(3, 37, 132), "(3, 37, 132) u8 unaligned")]
     err_f = 0.0
-    for x, label in ((chunk, f"{tuple(chunk.shape)} u8"),
-                     (odd, f"{tuple(odd.shape)} u8")):
+    for x, label in cases:
         for contrast in (False, True):
-            e = cmp(finish.fused_finish(x, contrast),
-                    finish.fused_finish_reference(x, contrast))
+            got = finish.fused_finish(x, contrast)
+            want = finish.fused_finish_reference(x, contrast)
+            e = cmp(got, want)
+            same = torch.equal(got, want)
             print(f"[kernel] finish {label} contrast={contrast}: max|d| "
-                  f"{e:.3g}")
-            check(e <= KERNEL_TOL, f"finish {label}: max|d| {e}")
+                  f"{e:.3g}, torch.equal {same}")
+            check(same and got.shape == x.shape,
+                  f"finish {label}: max|d| {e}")
             err_f = max(err_f, e)
+    del cases, flat
     ms_f = cuda_ms(lambda: finish.fused_finish(chunk), reps)
     dms_f = device_us(lambda: finish.fused_finish(chunk),
                       {"finish_kernel": 1}) / 1e3
@@ -1301,8 +1371,9 @@ def serving_kernels(staging, card, reps=20):
     print(f"[kernel] finish {tuple(chunk.shape)} u8 (one serving chunk): "
           f"kernel device {dms_f:.3f} ms (events {ms_f:.3f}, tone on "
           f"{ms_ft:.3f}), plain {pms_f:.3f} "
-          f"ms, bound {b_f:.3f} ms ({by_f}), library nn.Conv2d reflect on "
-          f"the f32 frames {lib_f:.3f} ms (max|d| {lib_err:.3g})  [{card}]")
+          f"ms, bound {b_f:.3f} ms ({by_f}; {b_f / dms_f:.1%} of it), "
+          f"library nn.Conv2d reflect on the f32 frames {lib_f:.3f} ms "
+          f"(max|d| {lib_err:.3g}); {FINISH_PARENT}  [{card}]")
 
     # --- gather: the tracker's calls of one frame step, and shuffled -------
     calls = record_gathers(staging)

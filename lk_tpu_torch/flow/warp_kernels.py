@@ -9,7 +9,8 @@ Counterparts of two Pallas makers of ``lk_tpu/flow/pallas_kernels.py``:
   ``fused_from_iters``);
 * ``make_fused_lk_level`` -> ``fused_lk_level_precomputed``: ``n_iters``
   IC iterations on a precomputed prev / ix / iy / A / inv_det
-  (``fused_grads_in_kernel=False``), Jacobi across tiles, no eps freeze.
+  (``fused_grads_in_kernel=False``), Jacobi across tiles, no eps freeze;
+  the kernel runs every iteration in one launch.
 
 Each dispatches on the device of its inputs: CPU tensors go to the plain
 version (``*_reference``), CUDA tensors to the CUDA kernel
@@ -43,8 +44,8 @@ import torch
 from lk_tpu_torch.flow.lk_kernels import (HALO, MAX_LOCAL, _box,
                                           _flow_planes, warp_region)
 
-# Kernel launches (one per call of the warp, one per iteration of the
-# level) and calls of the plain versions.
+# Kernel launches (one per call of each: the level runs all its iterations
+# in one launch) and calls of the plain versions.
 kernel_launches = {"local_warp": 0, "fused_lk_level_precomputed": 0}
 plain_calls = {"local_warp": 0, "fused_lk_level_precomputed": 0}
 
@@ -179,29 +180,42 @@ def fused_lk_level_precomputed(
             nxt, prev, ix, iy, a11, a12, a22, inv_det, flow, n_iters=n_iters,
             max_disp=max_disp, tile_h=tile_h, tile_w=tile_w, local=local,
             win_k=win_k)
+    return _fused_level_pre_cuda(
+        nxt, prev, ix, iy, a11, a12, a22, inv_det, flow, n_iters=n_iters,
+        max_disp=max_disp, tile_h=tile_h, tile_w=tile_w, local=local,
+        win_k=win_k)
+
+
+# Output block shapes of csrc/fused_level_pre.cu (its SHAPES), by index.
+PRE_BLOCK_SHAPES = ((32, 32), (16, 32))
+
+
+def _fused_level_pre_cuda(nxt, prev, ix, iy, a11, a12, a22, inv_det, flow,
+                          *, n_iters, max_disp, tile_h, tile_w, local,
+                          win_k=15, shape=-1, blocks_per_sm=0):
+    """The kernel's launch: all ``n_iters`` in one cooperative launch that
+    reads the initial flow and writes two ping-pong buffers in turn.
+    ``shape`` forces ``PRE_BLOCK_SHAPES[shape]`` (-1: the kernel's
+    default), ``blocks_per_sm`` caps the grid below the resident maximum
+    (0: no cap); every shape and grid gives the same bits."""
     from lk_tpu_torch import _build
 
     planes = _pre_planes(prev, ix, iy, a11, a12, a22, inv_det)
     _check_pre(nxt, flow, planes, tile_h, tile_w, local, n_iters, win_k)
     lib = _build.library()
     nxt, init = nxt.contiguous(), flow.contiguous()
-    held = [t.contiguous() for _, t in planes]  # alive until the launches
-    ptrs = [t.data_ptr() for t in held]
+    held = [t.contiguous() for _, t in planes]  # alive until the launch
     h, w = nxt.shape
-    cur, bufs = init, []
-    for it in range(n_iters):
-        if len(bufs) < 2:
-            bufs.append(torch.empty((2, h, w), dtype=torch.float32,
-                                    device=nxt.device))
-        out = bufs[it % 2]
-        _build.launch(
-            lib.lk_fused_level_pre_launch, nxt, "fused_lk_level_precomputed",
-            nxt.data_ptr(), *ptrs, cur.data_ptr(), init.data_ptr(),
-            out.data_ptr(), h, w, tile_h, tile_w, local, win_k,
-            right_spill(tile_w) if it else 0, float(max_disp))
-        kernel_launches["fused_lk_level_precomputed"] += 1
-        cur = out
-    return cur
+    bufs = [torch.empty((2, h, w), dtype=torch.float32, device=nxt.device)
+            for _ in range(min(n_iters, 2))]
+    _build.launch(
+        lib.lk_fused_level_pre_launch, nxt, "fused_lk_level_precomputed",
+        nxt.data_ptr(), *(t.data_ptr() for t in held), init.data_ptr(),
+        bufs[0].data_ptr(), bufs[1].data_ptr() if n_iters > 1 else None,
+        h, w, tile_h, tile_w, local, win_k, right_spill(tile_w), n_iters,
+        float(max_disp), shape, blocks_per_sm)
+    kernel_launches["fused_lk_level_precomputed"] += 1
+    return bufs[(n_iters - 1) % 2]
 
 
 def fused_lk_level_precomputed_reference(
@@ -267,8 +281,9 @@ def bind(lib: ctypes.CDLL) -> None:
     lib.lk_local_warp_launch.restype = i
     lib.lk_fused_level_pre_launch.argtypes = [
         p, p, p, p, p, p, p, p,    # next, prev, ix, iy, a11, a12, a22, inv_det
-        p, p, p,                   # cur, init, out
-        i, i, i, i, i, i, i,       # H, W, tile_h, tile_w, local, win_k, spill
-        f, p,                      # max_disp, stream
+        p, p, p,                   # init, buf0, buf1
+        i, i, i, i, i, i, i, i,    # H, W, tile_h, tile_w, local, win_k,
+                                   # spill, n_iters
+        f, i, i, p,                # max_disp, shape, blocks_per_sm, stream
     ]
     lib.lk_fused_level_pre_launch.restype = i

@@ -141,10 +141,15 @@ def test_kernel_rejects_bad_input(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["uint8", "float32"])
 @pytest.mark.parametrize("shape", [(3, 37, 53), (2, 64, 128), (1, 483, 860),
-                                   (2, 2, 2)])
+                                   (2, 2, 2), (1, 483, 861), (4, 17, 132),
+                                   (2, 33, 257), (3, 5, 6), (16, 483, 860),
+                                   (70000, 2, 4)])
 def test_finish_matches_plain(cuda_device, shape, dtype):
     """Kernel A: bit-equal to the plain chain (no FMA contraction in the
-    kernel), with and without the tone curve; one launch per call."""
+    kernel), with and without the tone curve; one launch per call.  Widths
+    that are not a multiple of 4 (per-column loads), strips and warp
+    segments cut short, 2x2 frames and more frames than a grid dimension
+    holds (65,535) included."""
     rng = np.random.default_rng(2)
     x = rng.integers(0, 256, shape).astype(dtype)
     x = torch.from_numpy(x).to(cuda_device)
@@ -152,6 +157,23 @@ def test_finish_matches_plain(cuda_device, shape, dtype):
         finish.reset_counters()
         got = finish.fused_finish(x, contrast)
         assert (finish.kernel_launches, finish.plain_calls) == (1, 0)
+        want = finish.fused_finish_reference(x, contrast)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+def test_finish_unaligned_frames(cuda_device, dtype):
+    """Frames whose base is not aligned for the vector loads (a view one
+    element into its storage) take the per-column path: same bits."""
+    rng = np.random.default_rng(3)
+    n, h, w = 3, 37, 132
+    flat = torch.from_numpy(rng.integers(0, 256, 1 + n * h * w)
+                            .astype(dtype)).to(cuda_device)
+    x = flat[1:].view(n, h, w)
+    for contrast in (False, True):
+        got = finish.fused_finish(x, contrast)
         want = finish.fused_finish_reference(x, contrast)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
@@ -356,29 +378,50 @@ def test_local_warp_matches_plain(cuda_device, hw, tile, local):
     assert torch.equal(got, want)
 
 
+# (level h, w), (tile h, w), n_iters, local
+PRE_CASES = {
+    "top_1080p": ((136, 240), (136, 240), 6, 5),   # path B's top, spill 8
+    "top_1_iter": ((136, 240), (136, 240), 1, 5),
+    "tiled": ((128, 512), (64, 256), 3, 5),
+    "ragged": ((48, 250), (16, 250), 2, 5),        # spill 6
+    "l1_1080p": ((576, 1024), (64, 512), 2, 4),    # chip_smoke.py's tiled
+    "local8": ((96, 160), (96, 160), 3, 8),        # the largest window
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("hw,tile,n_iters", [((136, 240), (136, 240), 6),
-                                             ((128, 512), (64, 256), 3),
-                                             ((48, 250), (16, 250), 2)])
-def test_precomputed_level_matches_plain(cuda_device, hw, tile, n_iters):
+@pytest.mark.parametrize("blocks_per_sm", [0, 1])
+@pytest.mark.parametrize("shape",
+                         [-1] + list(range(len(wk.PRE_BLOCK_SHAPES))))
+@pytest.mark.parametrize("case", list(PRE_CASES))
+def test_precomputed_level_matches_plain(cuda_device, case, shape,
+                                         blocks_per_sm):
     """The precomputed-A level kernel: bit-equal to the plain version over
-    Jacobi iterations (right-halo refresh live where tile_w % 128 != 0);
-    one launch per iteration."""
+    Jacobi iterations (right-halo refresh live where tile_w % 128 != 0),
+    with every block shape, at the resident grid and at one block per SM
+    (blocks then walk several regions and restage them every iteration);
+    one launch per call whatever n_iters; the initial flow untouched."""
     from lk_tpu_torch.config import LKConfig
     from lk_tpu_torch.flow.dense import level_prologue
 
-    h, w = hw
+    (h, w), tile, n_iters, local = PRE_CASES[case]
     frames = _frames(2, h, w, cuda_device)
     ix, iy, a11, a12, a22, _, _, inv_det = level_prologue(
         frames[0], LKConfig(), "edge")
     flow = _zoom_flow(h, w, cuda_device, outliers=False) * 0.5
+    init = flow.clone()
     args = (frames[1], frames[0], ix, iy, a11, a12, a22, inv_det, flow)
     kw = dict(n_iters=n_iters, max_disp=8, tile_h=tile[0], tile_w=tile[1],
-              local=5)
+              local=local)
     wk.reset_counters()
-    got = wk.fused_lk_level_precomputed(*args, **kw)
-    assert wk.kernel_launches["fused_lk_level_precomputed"] == n_iters
+    got = (wk.fused_lk_level_precomputed(*args, **kw)
+           if shape == -1 and blocks_per_sm == 0 else
+           wk._fused_level_pre_cuda(*args, **kw, shape=shape,
+                                    blocks_per_sm=blocks_per_sm))
+    assert wk.kernel_launches["fused_lk_level_precomputed"] == 1
+    assert sum(wk.plain_calls.values()) == 0
     want = wk.fused_lk_level_precomputed_reference(*args, **kw)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     assert torch.equal(got, want)
+    assert torch.equal(flow, init)

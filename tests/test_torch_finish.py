@@ -10,7 +10,9 @@ path fuses to an FMA too (tests/test_pallas_finish.py): <= 1e-3 on 0..255
 data there.  The blur's products are by powers of two, exact either way.
 The matmul resize sums in another order: <= 1e-3."""
 
+import ctypes
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -99,6 +101,39 @@ def test_finish_counts_plain_calls_on_cpu(frames_u8):
     finish.reset_counters()
     finish.fused_finish(torch.from_numpy(frames_u8[(2, 64, 128)]))
     assert (finish.plain_calls, finish.kernel_launches) == (1, 0)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+def test_finish_launch_arguments(rng, monkeypatch, dtype):
+    """The kernel's wrapper, with a stand-in launcher on the CPU that
+    writes the plain result where the kernel would: more frames than a
+    grid dimension holds (65,535) go to one launch, with the dtype flag,
+    the frame geometry and the tone constants."""
+    from lk_tpu_torch import _build
+
+    x = torch.from_numpy(rng.integers(0, 256, (70000, 2, 4)).astype(dtype))
+    want = {c: finish.fused_finish_reference(x, c) for c in (False, True)}
+    launches = []
+
+    def launch(fn, t, name, *a):
+        launches.append((fn, t, name, a))
+        ctypes.memmove(a[2], want[bool(a[6])].data_ptr(), x.numel() * 4)
+
+    monkeypatch.setattr(_build, "library", lambda: types.SimpleNamespace(
+        lk_finish_launch="finish"))
+    monkeypatch.setattr(_build, "launch", launch)
+    for contrast in (False, True):
+        launches.clear()
+        finish.reset_counters()
+        out = finish._fused_finish_cuda(x, contrast)
+        assert (finish.kernel_launches, finish.plain_calls) == (1, 0)
+        (fn, t, name, a), = launches
+        assert (fn, t, name) == ("finish", x, "finish")
+        assert a[0] == x.data_ptr() and a[2] == out.data_ptr()
+        assert a[1] == int(dtype == np.uint8)
+        assert a[3:7] == (70000, 2, 4, int(contrast))
+        assert a[7:] == pytest.approx(tone.tone_constants())
+        assert torch.equal(out, want[contrast])
 
 
 def test_finish_rejects_bad_input():

@@ -10,6 +10,9 @@ tests/test_pallas_warp.py runs them).
   contract a product into an FMA, so the bound is 1e-4 (measured ~3e-5).
 """
 
+import ctypes
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -178,6 +181,54 @@ def test_right_spill_geometry():
     cases = {240: 8, 384: 0, 480: 8, 48: 8, 250: 6, 512: 0, 124: 4}
     for tile_w, spill in cases.items():
         assert wk.right_spill(tile_w) == spill, tile_w
+
+
+@pytest.mark.parametrize("n_iters", [1, 2, 3, 6])
+def test_precomputed_launch_arguments(rng, monkeypatch, n_iters):
+    """The kernel's wrapper, with a stand-in launcher on the CPU that
+    writes each iteration's plain result where the kernel would: one
+    launch per call for any n_iters; the initial flow read only, as a
+    third buffer; both ping-pong buffers distinct (the second absent at
+    one iteration); the later iterations' right-halo spill; the buffer of
+    the last iteration returned."""
+    from lk_tpu_torch import _build
+
+    h, w, th, tw_ = 32, 120, 16, 120
+    prv, nxt, init, pro = _precomputed_inputs(rng, h, w)
+    args = (_t(nxt), _t(prv), *map(_t, pro), _planes(init))
+    kw = dict(max_disp=6, tile_h=th, tile_w=tw_, local=4, win_k=15)
+    launches = []
+
+    def launch(fn, t, name, *a):
+        launches.append((fn, t, name, a))
+        init_p, buf0, buf1 = a[8:11]
+        assert a[11:] == (h, w, th, tw_, 4, 15, wk.right_spill(tw_),
+                          n_iters, 6.0, -1, 0)
+        for i in range(n_iters):
+            got = wk.fused_lk_level_precomputed_reference(
+                *args, n_iters=i + 1, **kw)
+            ctypes.memmove((buf0, buf1)[i % 2], got.data_ptr(),
+                           got.numel() * 4)
+
+    monkeypatch.setattr(_build, "library", lambda: types.SimpleNamespace(
+        lk_fused_level_pre_launch="pre"))
+    monkeypatch.setattr(_build, "launch", launch)
+    before = args[-1].clone()
+    wk.reset_counters()
+    out = wk._fused_level_pre_cuda(*args, n_iters=n_iters, **kw)
+    assert wk.kernel_launches["fused_lk_level_precomputed"] == 1
+    (fn, t, name, a), = launches
+    assert (fn, name) == ("pre", "fused_lk_level_precomputed")
+    assert t is args[0]
+    assert a[:9] == tuple(x.data_ptr() for x in args)
+    init_p, buf0, buf1 = a[8:11]
+    assert buf0 not in (None, init_p)
+    assert (buf1 is None) if n_iters == 1 else buf1 not in (buf0, init_p)
+    assert out.data_ptr() == (buf0, buf1)[(n_iters - 1) % 2]
+    assert torch.equal(args[-1], before)
+    want = wk.fused_lk_level_precomputed_reference(*args, n_iters=n_iters,
+                                                   **kw)
+    assert torch.equal(out, want)
 
 
 def test_cpu_inputs_take_the_plain_versions(rng):
