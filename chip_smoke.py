@@ -41,7 +41,9 @@ runs it.
      parent's composition (edge pad + one pyrDown launch per level) and
      the library (F.pad + nn.Conv2d per level), and the chunk's time with
      the grid capped at 1, 2 and 4 blocks per SM; the local warp
-     at path B's padded L0-L2 with a zoom flow and outliers beyond +-local;
+     at path B's padded L0-L2 with a zoom flow and outliers beyond +-local,
+     torch.equal, each level timed beside its bound and the parent's design
+     (WARP_PARENT);
      the precomputed level at path B's top (136x240, 6 iterations) and
      tiled (576x1024 on 64x512 tiles, 2 iterations), one launch per call,
      torch.equal with every block shape at the resident grid and at one
@@ -55,8 +57,9 @@ runs it.
      chain's pair 0 bit for bit;
   8. paths B and C on both scenes' first pair, counted the same way (B:
      pyramid 1, local warp 3, precomputed level 1; C: pyramid 1 only);
-     B's flow, min_eig and valid equal to the run with the plain
-     precomputed level; B's EPE < 0.1 px, C's printed;
+     B's flow, min_eig and valid equal to the runs with the plain
+     precomputed level and with the plain local warp; B's EPE < 0.1 px,
+     C's printed;
   9. per-pair timing with CUDA events: ms per pair of paths A, B and C;
      with --profile also each path's host enqueue and device time by
      kernel group;
@@ -189,6 +192,11 @@ SEPARATE_PAD_MS = {
 # H100 80GB HBM3 at 700 W), printed beside this run's.
 FINISH_PARENT = "one 1024x483x860 u8 chunk took 1.521 ms (PR 6's design)"
 PRE_PARENT = "path B's top took 0.127 ms in 6 launches (PR 6's design)"
+# The local warp's device us per level of path B with the kernel's first
+# design, before its redesign for Hopper (PERF.md's kernel table, row 9, a
+# counted trace on an NVIDIA H100 80GB HBM3 at 700 W), printed beside this
+# run's.
+WARP_PARENT = {0: 25.6, 1: 9.7, 2: 6.5}
 
 
 def configs():
@@ -242,6 +250,15 @@ def plain_precomputed():
 
     return patched(dense, "fused_lk_level_precomputed",
                    wk.fused_lk_level_precomputed_reference)
+
+
+def plain_local_warp():
+    """Context: the dense paths with the plain local warp, every other
+    kernel unchanged."""
+    from lk_tpu_torch.flow import dense
+    from lk_tpu_torch.flow import warp_kernels as wk
+
+    return patched(dense, "local_warp", wk.local_warp_reference)
 
 
 def reset_counters() -> None:
@@ -724,9 +741,11 @@ def perpair_kernels(frames0, cfg, card, reps=20):
         flow = zoom_flow(hp, wp, dev, outliers=True)
         kw = dict(max_disp=lcfg.level_disp(level), tile_h=th, tile_w=tw,
                   local=lcfg.warp_local)
-        e = cmp(wk.local_warp(nxt, flow, **kw),
-                wk.local_warp_reference(nxt, flow, **kw),
-                f"local_warp L{level}")
+        want = wk.local_warp_reference(nxt, flow, **kw)
+        got = wk.local_warp(nxt, flow, **kw)
+        e = cmp(got, want, f"local_warp L{level}")
+        check(torch.equal(got, want), f"local_warp L{level}: differs from "
+              f"the plain version")
         err_w = max(err_w, e)
         ms = cuda_ms(lambda: wk.local_warp(nxt, flow, **kw), reps)
         dev_us = device_us(lambda: wk.local_warp(nxt, flow, **kw),
@@ -747,15 +766,17 @@ def perpair_kernels(frames0, cfg, card, reps=20):
             b_w + bm
         by_w.add(bb)
         print(f"[kernel] local_warp L{level} {hp}x{wp} tile {th}x{tw} local "
-              f"{kw['local']} disp {kw['max_disp']}: max|d| {e:.3g}; kernel "
-              f"device {dev_us:.1f} us (events {ms:.4f} ms), plain "
-              f"{pms:.3f} ms, bound {bm:.4f} ms ({bb}), library "
-              f"F.grid_sample (2-D, no +-local clamp) {lib:.4f} ms  "
-              f"[{card}]")
+              f"{kw['local']} disp {kw['max_disp']}: torch.equal; kernel "
+              f"device {dev_us:.1f} us (events {ms:.4f} ms), bound "
+              f"{bm * 1e3:.2f} us ({bb}, {bm * 1e3 / dev_us:.0%} of it), "
+              f"the parent's design {WARP_PARENT[level]} us; plain "
+              f"{pms:.3f} ms, library F.grid_sample (2-D, no +-local "
+              f"clamp) {lib:.4f} ms  [{card}]")
     print(f"[kernel] local_warp, path B's L0-L2 (3 launches): kernel "
-          f"device {dev_w:.1f} us (events {ms_w:.4f} ms), plain "
-          f"{pms_w:.3f} ms, bound {b_w:.4f} ms, library {lib_w:.4f} ms  "
-          f"[{card}]")
+          f"device {dev_w:.1f} us (events {ms_w:.4f} ms), bound "
+          f"{b_w * 1e3:.2f} us ({b_w * 1e3 / dev_w:.0%} of it), the "
+          f"parent's design {sum(WARP_PARENT.values()):.1f} us, plain "
+          f"{pms_w:.3f} ms, library {lib_w:.4f} ms  [{card}]")
 
     # --- precomputed level: path B's top, and a tiled level -----------------
     prev_levels = dense.build_frame_levels(frames0[0], cfg, path_cfg("B"))
@@ -1052,14 +1073,18 @@ def perpair_paths(scenes, video_pair0, cfg, card):
             limit = f" (limit {EPE_LIMIT})" if name == "B" else ""
             same = ""
             if name == "B":
-                with plain_precomputed():
-                    ref = dense.dense_pyramidal_lk(pair[0], pair[1], cfg,
-                                                   None, path_cfg(name))
-                check(all(torch.equal(x, y) for x, y in zip(res, ref)),
-                      f"path B {label}: the flow, min_eig or valid differ "
-                      f"with the plain precomputed level")
-                same = (", flow, min_eig and valid == the run with the "
-                        "plain precomputed level")
+                for what, plain in (("precomputed level",
+                                     plain_precomputed),
+                                    ("local warp", plain_local_warp)):
+                    with plain():
+                        ref = dense.dense_pyramidal_lk(
+                            pair[0], pair[1], cfg, None, path_cfg(name))
+                    check(all(torch.equal(x, y) for x, y in zip(res, ref)),
+                          f"path B {label}: the flow, min_eig or valid "
+                          f"differ with the plain {what}")
+                same = (", flow, min_eig and valid == the runs with the "
+                        "plain precomputed level and with the plain local "
+                        "warp")
             print(f"[path {name}] {label}: launches {counts}, plain calls "
                   f"0, valid {float(res.valid.float().mean()):.4f}, mean "
                   f"EPE {epe:.4f} px{limit}{same}")

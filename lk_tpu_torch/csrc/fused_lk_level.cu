@@ -94,19 +94,26 @@
 
 #include <cuda_runtime.h>
 
-#include "warp_tile.cuh"
-
 // 0: the kernel.  Measurement copies only (chip_smoke.py --profile): 1, each
 // block returns once its staging has landed; 2, the copies are left out and
 // the passes run on whatever shared memory holds.
 #ifndef LK_FUSED_ANATOMY
 #define LK_FUSED_ANATOMY 0
 #endif
+#if LK_FUSED_ANATOMY == 2
+#define LKWARP_NO_COPIES 1
+#endif
+
+#include "warp_tile.cuh"
 
 namespace {
 
 using lkwarp::clampf;
 using lkwarp::clampi;
+using lkwarp::cp_async4;
+using lkwarp::cp_async_wait_all;
+using lkwarp::stage;
+using lkwarp::staged_stride;
 
 constexpr int HALO = 8;
 constexpr int MAX_LOCAL = 8;
@@ -142,10 +149,6 @@ struct Shape {
 
 __host__ __device__ constexpr int up4(int n) { return (n + 3) / 4 * 4; }
 
-// Row stride of a staged row of n floats: room for the 0-3 floats between
-// the 16-byte-aligned column at or below its first element and that element.
-__host__ __device__ constexpr int staged_stride(int n) { return (n + 6) / 4 * 4; }
-
 // Shared-memory layout of one block, in floats, for local L.  Every region
 // starts 16-byte aligned.
 template <class S, int L, bool COARSE>
@@ -170,55 +173,6 @@ struct Layout {
   static constexpr int R2 = up4(R2A > R2B ? R2A : R2B);
   static constexpr int FLOATS = FLOW + R1 + R2;
 };
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-#if LK_FUSED_ANATOMY != 2
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src));
-#endif
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-#if LK_FUSED_ANATOMY != 2
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-#endif
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::);
-}
-
-// Stage ROWS x N floats of a row-major plane (H x W) from (y0, x0) into s:
-// row r at s + r * staged_stride(N) + off, off = x0 & 3, rows and columns
-// edge-clamped.  Returns off.  Where the block's columns lie inside the
-// plane and the rows are 16-byte aligned, each row is copied 16 B at a time
-// from the aligned column x0 - off; elsewhere element by element, by
-// clamped address.
-template <int ROWS, int N, int NT>
-__device__ __forceinline__ int stage(float* s, const float* plane, int y0,
-                                     int x0, int H, int W) {
-  constexpr int STRIDE = staged_stride(N), NC = STRIDE / 4;
-  const int off = x0 & 3, xa = x0 - off;
-  const bool wide = xa >= 0 && xa + STRIDE <= W && (W & 3) == 0 &&
-                    (reinterpret_cast<size_t>(plane) & 15) == 0;
-  if (wide) {
-    for (int i = threadIdx.x; i < ROWS * NC; i += NT) {
-      const int r = i / NC, ch = i - r * NC;
-      const int y = clampi(y0 + r, 0, H - 1);
-      cp_async16(s + r * STRIDE + ch * 4, plane + (size_t)y * W + xa + ch * 4);
-    }
-  } else {
-    for (int i = threadIdx.x; i < ROWS * N; i += NT) {
-      const int r = i / N, c = i - r * N;
-      const int y = clampi(y0 + r, 0, H - 1), x = clampi(x0 + c, 0, W - 1);
-      cp_async4(s + r * STRIDE + off + c, plane + (size_t)y * W + x);
-    }
-  }
-  return off;
-}
 
 // upsample2_linear's x2 flow at level position (y, x) from a staged coarse
 // patch (row stride CS) whose element (0, 0) holds coarse (cy0, cx0),

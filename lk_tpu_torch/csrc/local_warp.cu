@@ -9,19 +9,27 @@
 // lk_tpu_torch/flow/warp_kernels.py local_warp_reference; both compute the
 // warp of warp_tile.cuh with no halo, so they agree bit for bit.  The TPU
 // kernel's aligned window DMA, lane and sublane rolls and power-of-two window
-// widths are TPU layout: here the window is read by clamped address.
-//
-// Design: one block per (BH, BW) piece of one reference tile (a block never
-// straddles two tiles, so it shares the tile's reference).  The block stages
-// its (BH + 2L + 1) x (BW + 2L + 1) window of next and the fy its vertical
-// pass reads, runs the vertical pass into shared memory, and the horizontal
-// pass with the pixel's own fx to the output.
+// widths are TPU layout: here the window is staged by cp.async.
 //
 // What bounds it on this card: the compulsory traffic, next and the two flow
 // planes read once and the output written once, 16 B per pixel (1080p level
 // 0, 1088x1920: 33.4 MB, ~10 us at 3.35 TB/s), against ~30 f32 operations
-// per pixel: memory bound.  The window halo (2L + 1 rows and columns per 32)
-// is re-read from L2.
+// per pixel: memory bound.  The window halo (2L + 1 rows and columns per
+// block) is re-read from L2.
+//
+// Design: one block per (16, 32) piece of one reference tile (a block never
+// straddles two tiles, so it shares the tile's reference), 128 threads;
+// local is a template parameter, so every window extent and index division
+// is a compile-time constant.  Before its one wait, a block issues every
+// load it makes: the tile reference, then each thread's flow into
+// registers (the 8 fy of its vertical-pass column strip, the 4 fx of its
+// output column strip), then the (16 + 2L + 1) x (32 + 2L + 1) window of
+// next with cp.async (warp_tile.cuh stage: 16 B copies where the rows lie
+// inside the level and are aligned, 4 B by clamped address elsewhere).  The
+// vertical pass is one thread per (window column, 8 rows), walking down the
+// column; the horizontal pass one thread per (output column, 4 rows), a warp
+// per 32 columns, its stores coalesced and streaming (__stcs: the output is
+// not read again by this launch).
 
 #include <cuda_runtime.h>
 
@@ -29,64 +37,102 @@
 
 namespace {
 
-constexpr int BH = 32;                 // output rows per block
-constexpr int BW = 32;                 // output cols per block
-constexpr int NT = 256;                // threads per block
 constexpr int MAX_LOCAL = 8;
-constexpr int FW_MAX = BW + 2 * MAX_LOCAL + 1;
-constexpr int WR_MAX = BH + 2 * MAX_LOCAL + 1;
+constexpr int BH = 16;   // output rows per block
+constexpr int BW = 32;   // output columns per block: a warp's lanes
+constexpr int RH = 4;    // output rows per thread of the horizontal pass
+constexpr int RV = 8;    // rows per thread of the vertical pass
+constexpr int NT = BW * BH / RH;  // threads per block
 
 struct Params {
   const float* next;       // (H, W)
   const float* fx;         // (H, W) flow planes
   const float* fy;
   float* out;              // (H, W)
-  int H, W, th, tw, nbx, nby, local;
+  int H, W, th, tw, nbx, nby;
   float max_disp;
 };
 
+template <int L>
 __global__ void __launch_bounds__(NT)
 local_warp_kernel(Params p) {
-  __shared__ float sWin[WR_MAX * FW_MAX];  // window of next, WR x FW
-  __shared__ float sFY[BH * FW_MAX];       // fy of the vertical pass, BH x FW
-  __shared__ float sV[BH * FW_MAX];        // vertical pass, BH x FW
-  const int L = p.local;
-  const int FW = BW + 2 * L + 1;
-  const int WR = BH + 2 * L + 1;
+  constexpr int FW = BW + 2 * L + 1;           // window columns
+  constexpr int WR = BH + 2 * L + 1;           // window rows
+  constexpr int WS = lkwarp::staged_stride(FW);
+  constexpr int NV = FW * (BH / RV);           // vertical-pass threads
+  constexpr float two_l = 2.0f * L;
+  static_assert(BH % RV == 0 && NV <= NT, "one vertical strip per thread");
+  __shared__ __align__(16) float sWin[WR * WS];  // window of next
+  __shared__ float sV[BH * FW];                  // vertical pass
+
+  const int tid = threadIdx.x;
   const int H = p.H, W = p.W;
-  const int tj = blockIdx.x / p.nbx, bx = blockIdx.x % p.nbx;
-  const int ti = blockIdx.y / p.nby, by = blockIdx.y % p.nby;
+  const int tj = blockIdx.x / p.nbx, bx = blockIdx.x - tj * p.nbx;
+  const int ti = blockIdx.y / p.nby, by = blockIdx.y - ti * p.nby;
   const int ty0 = ti * p.th, tx0 = tj * p.tw;    // tile origin
   const int rb = by * BH, cb = bx * BW;          // block origin in the tile
   const float D = p.max_disp;
-  const float two_l = 2.0f * L;
 
+  // --- every load before the wait: the reference first, the window's
+  // origin waits on it -----------------------------------------------------
   const size_t at = (size_t)(ty0 + p.th / 2) * W + (tx0 + p.tw / 2);
-  const int wy0 = lkwarp::window_origin(ty0, p.fy[at], D, L);
-  const int wx0 = lkwarp::window_origin(tx0, p.fx[at], D, L);
+  const float rfy = p.fy[at], rfx = p.fx[at];
 
-  lkwarp::load_window(sWin, p.next, WR, FW, wy0 + rb, wx0 + cb, H, W);
-  for (int i = threadIdx.x; i < BH * FW; i += NT) {
-    const int r = i / FW, c = i % FW;
-    const int y = min(ty0 + rb + r, H - 1);      // rows past a ragged block
-    sFY[i] = p.fy[(size_t)y * W + tx0 + min(cb + c, p.tw - 1)];
+  // vertical strip: window column vc, block rows vr0 .. vr0 + RV - 1; the
+  // column takes the fy of tile column min(cb + vc, tw - 1), rows past a
+  // ragged block clamp to the level
+  const int vs = tid / FW, vc = tid - vs * FW, vr0 = vs * RV;
+  float fy[RV];
+  if (tid < NV) {
+    const float* src = p.fy + tx0 + min(cb + vc, p.tw - 1);
+#pragma unroll
+    for (int u = 0; u < RV; ++u)
+      fy[u] = src[(size_t)min(ty0 + rb + vr0 + u, H - 1) * W];
+  }
+  // output strip: column hc, block rows hr0 .. hr0 + RH - 1
+  const int hc = tid % BW, hr0 = tid / BW * RH;
+  const bool col_in = cb + hc < p.tw;
+  const size_t px0 = (size_t)(ty0 + rb + hr0) * W + (tx0 + cb + hc);
+  float fx[RH];
+#pragma unroll
+  for (int u = 0; u < RH; ++u)
+    fx[u] = col_in && rb + hr0 + u < p.th ? p.fx[px0 + (size_t)u * W] : 0.0f;
+
+  const int wy0 = lkwarp::window_origin(ty0, rfy, D, L);
+  const int wx0 = lkwarp::window_origin(tx0, rfx, D, L);
+  const float* sWo = sWin + lkwarp::stage<WR, FW, NT>(sWin, p.next, wy0 + rb,
+                                                      wx0 + cb, H, W);
+  lkwarp::cp_async_wait_all();
+  __syncthreads();
+
+  // --- vertical pass, down the strip; stored after the walk ---------------
+  if (tid < NV) {
+    float v[RV];
+#pragma unroll
+    for (int u = 0; u < RV; ++u) {
+      const int r = vr0 + u;
+      v[u] = lkwarp::tent(sWo + r * WS + vc, WS, fy[u], rb + r, ty0, wy0, D,
+                          two_l, H);
+    }
+#pragma unroll
+    for (int u = 0; u < RV; ++u) sV[(vr0 + u) * FW + vc] = v[u];
   }
   __syncthreads();
 
-  for (int i = threadIdx.x; i < BH * FW; i += NT) {
-    const int r = i / FW, c = i % FW;
-    sV[i] = lkwarp::tent(sWin + r * FW + c, FW, sFY[i], rb + r, ty0, wy0, D,
-                         two_l, H);
+  // --- horizontal pass with the pixel's own fx, to the output -------------
+#pragma unroll
+  for (int u = 0; u < RH; ++u) {
+    const int r = hr0 + u;
+    if (!col_in || rb + r >= p.th) break;        // ragged tile edge
+    __stcs(p.out + px0 + (size_t)u * W, lkwarp::tent(
+        sV + r * FW + hc, 1, fx[u], cb + hc, tx0, wx0, D, two_l, W));
   }
-  __syncthreads();
+}
 
-  for (int i = threadIdx.x; i < BH * BW; i += NT) {
-    const int r = i / BW, c = i % BW;
-    if (rb + r >= p.th || cb + c >= p.tw) continue;   // ragged tile edge
-    const size_t px = (size_t)(ty0 + rb + r) * W + (tx0 + cb + c);
-    p.out[px] = lkwarp::tent(sV + r * FW + c, 1, p.fx[px], cb + c, tx0, wx0,
-                             D, two_l, W);
-  }
+template <int L>
+cudaError_t launch(const Params& p, const dim3& grid, cudaStream_t st) {
+  local_warp_kernel<L><<<grid, NT, 0, st>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -112,11 +158,22 @@ int lk_local_warp_launch(const void* next, const void* fx, const void* fy,
   p.tw = tile_w;
   p.nbx = (tile_w + BW - 1) / BW;
   p.nby = (tile_h + BH - 1) / BH;
-  p.local = local;
   p.max_disp = max_disp;
   const dim3 grid((W / tile_w) * p.nbx, (H / tile_h) * p.nby);
-  local_warp_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (local) {
+    case 0: return (int)launch<0>(p, grid, st);
+    case 1: return (int)launch<1>(p, grid, st);
+    case 2: return (int)launch<2>(p, grid, st);
+    case 3: return (int)launch<3>(p, grid, st);
+    case 4: return (int)launch<4>(p, grid, st);
+    case 5: return (int)launch<5>(p, grid, st);
+    case 6: return (int)launch<6>(p, grid, st);
+    case 7: return (int)launch<7>(p, grid, st);
+    default: return (int)launch<8>(p, grid, st);
+  }
+  static_assert(MAX_LOCAL == 8, "extend the dispatch");
 }
 
 }  // extern "C"

@@ -34,6 +34,66 @@ __device__ __forceinline__ float clampf(float v, float lo, float hi) {
   return fminf(fmaxf(v, lo), hi);
 }
 
+// Staging with cp.async (fused_lk_level.cu, local_warp.cu).  A build with
+// LKWARP_NO_COPIES defined to 1 leaves the copies out, for measurement only:
+// the kernel then runs on whatever shared memory holds.
+#ifndef LKWARP_NO_COPIES
+#define LKWARP_NO_COPIES 0
+#endif
+
+// Row stride of a staged row of n floats: room for the 0-3 floats between
+// the 16-byte-aligned column at or below its first element and that element.
+__host__ __device__ constexpr int staged_stride(int n) { return (n + 6) / 4 * 4; }
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+#if !LKWARP_NO_COPIES
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+#endif
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+#if !LKWARP_NO_COPIES
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+#endif
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+// Stage ROWS x N floats of a row-major plane (H x W) from (y0, x0) into s:
+// row r at s + r * staged_stride(N) + off, off = x0 & 3, rows and columns
+// edge-clamped.  Returns off.  Where the block's columns lie inside the
+// plane and the rows are 16-byte aligned, each row is copied 16 B at a time
+// from the aligned column x0 - off; elsewhere element by element, by
+// clamped address.
+template <int ROWS, int N, int NT>
+__device__ __forceinline__ int stage(float* s, const float* plane, int y0,
+                                     int x0, int H, int W) {
+  constexpr int STRIDE = staged_stride(N), NC = STRIDE / 4;
+  const int off = x0 & 3, xa = x0 - off;
+  const bool wide = xa >= 0 && xa + STRIDE <= W && (W & 3) == 0 &&
+                    (reinterpret_cast<size_t>(plane) & 15) == 0;
+  if (wide) {
+    for (int i = threadIdx.x; i < ROWS * NC; i += NT) {
+      const int r = i / NC, ch = i - r * NC;
+      const int y = clampi(y0 + r, 0, H - 1);
+      cp_async16(s + r * STRIDE + ch * 4, plane + (size_t)y * W + xa + ch * 4);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * N; i += NT) {
+      const int r = i / N, c = i - r * N;
+      const int y = clampi(y0 + r, 0, H - 1), x = clampi(x0 + c, 0, W - 1);
+      cp_async4(s + r * STRIDE + off + c, plane + (size_t)y * W + x);
+    }
+  }
+  return off;
+}
+
 // Row (column) origin of a region's warp window: region origin + rounded,
 // clipped reference displacement - L.
 __device__ __forceinline__ int window_origin(int region0, float ref, float D,

@@ -6,15 +6,16 @@ Imports ``lk_tpu_torch`` from TREE (a checkout, e.g. one unpacked with
 ``git archive``) and this checkout's ``chip_smoke.py`` for its scenes and
 timers, then prints, for TREE's package:
 
-* the serving finish on one chunk (1024x483x860 u8) and the precomputed-A
-  level on path B's 1080p top (136x240, 6 iterations): device time per
+* the serving finish on one chunk (1024x483x860 u8), the precomputed-A
+  level on path B's 1080p top (136x240, 6 iterations) and the local warp
+  at path B's levels 0-2 (1088x1920, 576x1024, 320x480): device time per
   call from a counted torch.profiler trace, with the launches per call;
 * dense video pairs/s (34 frames at 1080p, CUDA events), ms per pair of
   path B, serving stream-frames/s (64 streams x 64 frames, best of 2
   passes after a warm-up pass);
-* sha256 digests of the precomputed level's output, the video's flow,
-  paths A and B's flow and the serving csv rows: equal across trees whose
-  outputs are bit-equal.
+* sha256 digests of the precomputed level's and the local warp's outputs,
+  the video's flow, paths A and B's flow and the serving csv rows: equal
+  across trees whose outputs are bit-equal.
 
 Compare two trees in turns, in one session on one card (host speed
 drifts between calls): build both first, then parent, change, change,
@@ -134,6 +135,27 @@ def main() -> int:
         f"{kw['n_iters']}: device {us:.1f} us in {n} launch(es); output "
         f"{digest([out.cpu().numpy()])}")
     del args, out
+
+    # --- the local warp at path B's levels 0-2 ---------------------------
+    nxt_levels = dense.build_frame_levels(frames[1], cfg, bcfg)
+    total, outs = 0.0, []
+    for level, _, lcfg, (_, th, tw, hp, wp) in cs.path_levels("B", cfg):
+        if lcfg.use_pallas_fused:
+            continue
+        nxt = blur.edge_pad(nxt_levels[level], hp, wp).contiguous()
+        flow = cs.zoom_flow(hp, wp, dev, outliers=True)
+        kw = dict(max_disp=lcfg.level_disp(level), tile_h=th, tile_w=tw,
+                  local=lcfg.warp_local)
+        wk.reset_counters()
+        outs.append(wk.local_warp(nxt, flow, **kw).cpu().numpy())
+        n = wk.kernel_launches["local_warp"]
+        us = cs.device_us(lambda: wk.local_warp(nxt, flow, **kw),
+                          {"local_warp_kernel": n})
+        total += us
+        say(f"local warp L{level} {hp}x{wp} tile {th}x{tw} local "
+            f"{kw['local']}: device {us:.1f} us in {n} launch(es)")
+    say(f"local warp L0-L2: device {total:.1f} us; output {digest(outs)}")
+    del nxt_levels, outs
 
     # --- paths A and B per pair, the video -------------------------------
     fn, _ = entry()

@@ -358,17 +358,38 @@ def _zoom_flow(h, w, device, outliers=True, seed=6):
     return torch.from_numpy(flow.astype(np.float32)).to(device)
 
 
+# (level h, w), (tile h, w), local, max_disp, base offset in floats
+LOCAL_WARP_CASES = {
+    # path B's levels 0-2 at 1080p
+    "l0_1080p": ((1088, 1920), (64, 384), 3, 32, 0),
+    "l1_1080p": ((576, 1024), (64, 512), 4, 16, 0),
+    "l2_1080p": ((320, 480), (64, 480), 5, 8, 0),
+    # every local, so that every template instance runs
+    **{f"local{n}": ((128, 256), (64, 128), n, 16, 0) for n in range(9)},
+    # ragged blocks: tiles that no block height or width divides
+    "ragged_rows": ((96, 480), (32, 480), 5, 16, 0),
+    "ragged_both": ((40, 100), (40, 50), 8, 16, 0),
+    "ragged_odd": ((120, 200), (60, 100), 4, 8, 0),
+    # a level smaller than one block
+    "small": ((6, 20), (6, 20), 2, 4, 0),
+    # a base that is not 16-byte aligned: every row by clamped address
+    "unaligned": ((128, 768), (64, 384), 3, 32, 1),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("hw,tile,local", [((128, 768), (64, 384), 3),
-                                           ((96, 480), (32, 480), 5),
-                                           ((40, 100), (40, 50), 8)])
-def test_local_warp_matches_plain(cuda_device, hw, tile, local):
-    """The local warp kernel: bit-equal to the plain version, ragged blocks
-    and outliers beyond +-local included; one launch per call."""
-    h, w = hw
-    nxt = _frames(1, h, w, cuda_device)[0]
+@pytest.mark.parametrize("case", list(LOCAL_WARP_CASES))
+def test_local_warp_matches_plain(cuda_device, case):
+    """The local warp kernel: bit-equal to the plain version, ragged
+    blocks, a level smaller than a block, an unaligned base and outliers
+    beyond +-local included; one launch per call."""
+    (h, w), tile, local, disp, offset = LOCAL_WARP_CASES[case]
+    img = _frames(1, h, w, cuda_device)[0]
+    nxt = torch.empty(h * w + offset, device=cuda_device)[offset:].view(h, w)
+    nxt.copy_(img)
+    assert nxt.data_ptr() % 16 == 4 * offset
     flow = _zoom_flow(h, w, cuda_device)
-    kw = dict(max_disp=16, tile_h=tile[0], tile_w=tile[1], local=local)
+    kw = dict(max_disp=disp, tile_h=tile[0], tile_w=tile[1], local=local)
     wk.reset_counters()
     got = wk.local_warp(nxt, flow, **kw)
     assert wk.kernel_launches["local_warp"] == 1

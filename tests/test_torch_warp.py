@@ -93,15 +93,19 @@ def test_local_warp_constant_flow(rng, shift):
     assert np.abs(got - want).max() <= TOL
 
 
-def test_local_warp_smooth_zoom(rng):
+@pytest.mark.parametrize("local,max_disp", [(6, 32), (3, 32), (4, 16),
+                                            (5, 8)])
+def test_local_warp_smooth_zoom(rng, local, max_disp):
     """A zoom whose flow varies across a tile by more than the residual
-    range: the per-tile reference and the +-local clamp decide pixels."""
+    range: the per-tile reference and the +-local clamp decide pixels.
+    The Pallas kernel's defaults, then path B's local and max_disp of its
+    levels 0, 1 and 2."""
     h, w = 64, 768
     img = (rng.random((h, w)) * 255).astype(np.float32)
     ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
     flow = np.stack([(xs - w / 2) * 0.02 + 3.0, (ys - h / 2) * 0.02 - 2.0],
                     -1).astype(np.float32)
-    want, got = _local_warp_pair(img, flow)
+    want, got = _local_warp_pair(img, flow, local=local, max_disp=max_disp)
     assert np.abs(got - want).max() <= TOL
 
 
@@ -115,6 +119,47 @@ def test_local_warp_residual_clamp(rng):
     want, got = _local_warp_pair(img, flow, tile_h=16)
     assert np.abs(got - want).max() <= TOL
     assert got[0, 0] <= 17.0
+
+
+@pytest.mark.parametrize("local", [0, 4, 8])
+def test_local_warp_launch_arguments(rng, monkeypatch, local):
+    """The kernel's path of local_warp, with a stand-in launcher on the
+    CPU that writes the plain result where the kernel would: the C
+    launcher's arguments in order, one launch per call; a local out of
+    range is refused before any launch."""
+    from lk_tpu_torch import _build
+
+    h, w, th, tw_ = 64, 96, 32, 48
+    img = _t(rng.random((h, w)) * 255)
+    flow = _t((rng.random((2, h, w)) - 0.5) * 12)
+    kw = dict(max_disp=6, tile_h=th, tile_w=tw_)
+    want = wk.local_warp_reference(img, flow, local=local, **kw)
+    launches = []
+
+    def launch(fn, t, name, *a):
+        launches.append((fn, t, name, a))
+        ctypes.memmove(a[3], want.data_ptr(), want.numel() * 4)
+
+    monkeypatch.setattr(wk, "_dispatch", lambda t, name: True)
+    monkeypatch.setattr(_build, "library", lambda: types.SimpleNamespace(
+        lk_local_warp_launch="warp"))
+    monkeypatch.setattr(_build, "launch", launch)
+    wk.reset_counters()
+    out = wk.local_warp(img, flow, local=local, **kw)
+    assert wk.kernel_launches["local_warp"] == 1
+    assert sum(wk.plain_calls.values()) == 0
+    (fn, t, name, a), = launches
+    assert (fn, name) == ("warp", "local_warp")
+    assert t is img
+    assert a == (img.data_ptr(), flow.data_ptr(),
+                 flow.data_ptr() + h * w * 4, out.data_ptr(), h, w, th, tw_,
+                 local, 6.0)
+    assert torch.equal(out, want)
+    for bad in (-1, wk.MAX_LOCAL + 1):
+        with pytest.raises(ValueError):
+            wk.local_warp(img, flow, local=bad, **kw)
+    assert len(launches) == 1
+    assert wk.kernel_launches["local_warp"] == 1
 
 
 def _precomputed_inputs(rng, h, w):
