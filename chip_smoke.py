@@ -10,7 +10,9 @@ level at the top); C, the default config's XLA level (plain PyTorch but
 for the pyramid kernel).  The serving path: batched VP serving,
 MultiStreamPipeline at 64 streams of 860x483 frames, chunk 16, out_cap 48,
 preset final, fed from a u8 staging array on the card, as apps/serve.py
-runs it.
+runs it.  The single-stream VP pipeline: VideoPipeline, preset final, a
+1080p BGR source processed at 860x483, chunk 16, as apps/_common.py's
+run_vp_app runs it.
 
   0. environment: the card's name and power limit, torch, CUDA, nvcc;
   1. build: compiles every CUDA kernel in csrc/ (one nvcc per source, in
@@ -83,11 +85,27 @@ runs it.
  13. serving timing: aggregate stream-frames/s with CUDA events around
      whole feed_staged + drain passes after the warm-up pass of phase 11;
  14. only with --profile: the serving pass's device and host time by
-     stage, and the device's busy share.
+     stage, and the device's busy share;
+ 15. single-stream main path: one synthetic 1080p road scene with a
+     planted VP, 97 BGR frames (the init frame + 6 chunks of 16), run
+     through VideoPipeline.run(prefetch=2) with the counters reset just
+     before and read just after (the tracker's pyramid once per tracked
+     frame, 96; the finish and the window gather never; no plain call);
+     the late-trajectory VP error < 25 px;
+ 16. single-stream timing: ms per tracked frame of whole run calls (CUDA
+     events, after phase 15's run), prefetch 0, prefetch 2 and the plain
+     pyramid, each run's csv rows, shown VPs and segments equal
+     (np.array_equal) to phase 15's; then a run checkpointed after 3
+     chunks and resumed in a fresh VideoPipeline, equal too;
+ 17. only with --profile: a single-stream run's device and host time by
+     stage (video.*, tracker.*, step.*), launches per frame and the
+     device's busy share.
 
 Prints a {"kernels": [...]} JSON line (each entry's "ms" is the kernel's
 own device time per call from torch.profiler, its launches counted in the
-trace, "event_ms" the CUDA-event time around the wrapper's calls), the
+trace, "event_ms" the CUDA-event time around the wrapper's calls; the
+pyramid's "launches" are the dense video's, "single_stream_launches" phase
+15's), the
 card line, and as the last line
 {"ok": true, "device": {...}}.  Any failed check raises: the exit code is
 then non-zero and no result line is printed.  Without a CUDA device, or run
@@ -134,6 +152,11 @@ VP_ERR_LIMIT = 25.0                    # px, tests/test_pipeline_e2e.py:39
 ROWS_TOL = 1e-4                        # px, kernel path vs plain path rows
 KERNEL_TOL = 1e-6                      # kernel vs plain; 0 expected (the
                                        # kernels repeat the plain order)
+# The single-stream VP pipeline (apps/_common.py run_vp_app's
+# VideoPipeline): preset final, a 1080p source processed at 860x483, its
+# default chunk of 16; 97 frames = the init frame + 6 chunks.
+V_FRAMES, V_CHUNK = 97, 16
+V_SPLIT = 1 + 3 * V_CHUNK              # frames before the checkpoint
 # Per-pair paths B and C (path A is lk_tpu_torch.entry's config; the
 # geometry is printed from the port's own functions in phase 6).
 PATH_CFGS = {
@@ -1477,15 +1500,18 @@ def serving_timing(staging, card, passes=2):
 
 STAGES = ("serve.finish", "tracker.fold", "tracker.gather", "tracker.refine",
           "step.detect", "step.vp_scan", "serve.compact", "serve.drain")
+VIDEO_STAGES = ("video.ingest", "tracker.pyramid", "tracker.scharr",
+                "tracker.refine", "step.detect", "step.vp_scan",
+                "video.drain")
 
 
-def profile_serving(staging, card):
-    """Phase 14 (--profile): where a serving pass's time goes, by the
-    port's profiler ranges.  The ranges appear twice in the trace: as CPU
-    ranges (host time inside each stage) and as annotations on the device
-    timeline; each kernel counts for the stage whose device annotation
-    holds its start.  Also the device's busy share: kernel time over the
-    span from the first kernel's start to the last one's end."""
+def profile_stages(label, run, stages, frames, card):
+    """Where one run's time goes, by the port's profiler ranges ``stages``
+    (phases 14 and 17, --profile).  The ranges appear twice in the trace:
+    as CPU ranges (host time inside each stage) and as annotations on the
+    device timeline; each kernel counts for the stage whose device
+    annotation holds its start.  Also the device's busy share: kernel time
+    over the span from the first kernel's start to the last one's end."""
     import bisect
 
     import torch
@@ -1495,14 +1521,14 @@ def profile_serving(staging, card):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve_pass(staging)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.events()
     dev_events = [e for e in events if e.device_type == DeviceType.CUDA]
-    ann = sorted((e for e in dev_events if e.name in STAGES),
+    ann = sorted((e for e in dev_events if e.name in stages),
                  key=lambda e: e.time_range.start)
-    kernels = [e for e in dev_events if e.name not in STAGES
+    kernels = [e for e in dev_events if e.name not in stages
                and not getattr(e, "is_user_annotation", False)]
     check(bool(kernels), "the profiler saw no device time")
     starts = [a.time_range.start for a in ann]
@@ -1515,26 +1541,156 @@ def profile_serving(staging, card):
         dev[st] = (n + 1, us + k.time_range.elapsed_us())
     host = {}
     for e in events:
-        if e.name in STAGES and e.device_type == DeviceType.CPU:
+        if e.name in stages and e.device_type == DeviceType.CPU:
             host[e.name] = host.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy = sum(us for _, us in dev.values())
     span = (max(e.time_range.end for e in kernels)
             - min(e.time_range.start for e in kernels))
-    frames = SF - 1
-    for st in STAGES + ("other",):
+    for st in stages + ("other",):
         n, us = dev.get(st, (0, 0.0))
         h = host.get(st)
         hs = ("" if h is None else
               f", host {h / 1e3 / frames:.2f} ms per frame "
               f"({h / 1e6 / wall:.1%} of the pass)")
-        print(f"[profile] serving {st}: device {us / 1e3 / frames:.3f} ms "
+        print(f"[profile] {label} {st}: device {us / 1e3 / frames:.3f} ms "
               f"per frame ({us / busy:.1%} of device time, "
               f"{n / frames:.0f} launches per frame){hs}  [{card}]")
-    print(f"[profile] serving pass under the profiler: wall {wall:.2f} s, "
+    print(f"[profile] {label} pass under the profiler: wall {wall:.2f} s, "
           f"device busy {busy / 1e3:.1f} ms = {busy / span:.1%} of the "
           f"traced device span ({span / 1e3:.1f} ms), {len(kernels)} "
           f"kernel launches = {len(kernels) / frames:.0f} per frame  "
           f"[{card}]")
+
+
+def profile_serving(staging, card):
+    """Phase 14 (--profile): where a serving pass's time goes."""
+    profile_stages("serving", lambda: serve_pass(staging), STAGES, SF - 1,
+                   card)
+
+
+# --------------------------------------------------------------------------
+# the single-stream VP pipeline: VideoPipeline at the production geometry
+# --------------------------------------------------------------------------
+
+def video_frames(dev):
+    """Phase 15's clip: one synthetic 1080p road scene expanding from a
+    planted VP (``road_staging``'s stream 0), its gray copied into three
+    BGR channels, as numpy u8 (V_FRAMES, 1080, 1920, 3); and the planted
+    VP in processing coordinates (x 860/1920)."""
+    staging, vps = road_staging(dev, n_streams=1, n_frames=V_FRAMES, h=H,
+                                w=W, n_tex=1)
+    gray = staging[:, 0].cpu().numpy()
+    return np.repeat(gray[..., None], 3, axis=-1), vps[0] * (SW / SRC[0])
+
+
+def video_run(frames, prefetch=0, resume=None):
+    """A fresh VideoPipeline (preset final, 1080p source, chunk 16) run
+    over ``frames``, resumed from the checkpoint ``resume`` if given."""
+    from lk_tpu_torch.models import PRESETS
+    from lk_tpu_torch.pipeline.runner import VideoPipeline
+
+    p = VideoPipeline(PRESETS["final"], src_size=SRC, chunk=V_CHUNK)
+    check((p.height, p.width) == (SH, SW),
+          f"processing size {p.height}x{p.width}")
+    if resume is not None:
+        p.resume_from(resume)
+    p.run(iter(frames), prefetch=prefetch)
+    return p
+
+
+def video_rows(p):
+    """The run's outputs as arrays: csv rows, shown VP per frame (nan where
+    hidden) and segments."""
+    vpf = np.array([v if v is not None else (np.nan, np.nan)
+                    for v in p.vp_per_frame], np.float64)
+    segs = np.array([np.concatenate([s["start"], s["stop"]])
+                     for s in p.segments], np.float32)
+    return np.array(p.csv_rows, np.float64), vpf, segs
+
+
+def same_rows(a, b) -> bool:
+    return all(np.array_equal(x, y, equal_nan=True)
+               for x, y in zip(video_rows(a), video_rows(b)))
+
+
+def video_phases(frames, vp, card):
+    """Phases 15 and 16: the counted single-stream run (prefetch 2, also
+    the warm-up) and its checks; then whole runs timed with CUDA events
+    (prefetch 0, prefetch 2, the plain pyramid with prefetch 0), each
+    equal to the counted run; then a checkpointed split run.  Returns the
+    counted run's launches."""
+    import tempfile
+
+    import torch
+    from lk_tpu_torch.flow import sparse
+    from lk_tpu_torch.ops import blur, finish
+
+    tracked = V_FRAMES - 1
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    run = video_run(frames, prefetch=2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"pyr_down": blur.kernel_launches,
+                "finish": finish.kernel_launches,
+                "window_gather": sparse.kernel_launches}
+    _, plain = dense_counts()
+    plain += finish.plain_calls + sparse.plain_calls
+    print(f"[video] VideoPipeline final {SRC[0]}x{SRC[1]} -> {SW}x{SH}, "
+          f"chunk {V_CHUNK}, prefetch 2, {V_FRAMES} frames: launches "
+          f"{launches} ({launches['pyr_down'] / tracked:.2f} pyramid "
+          f"launches per tracked frame), plain calls {plain}, first run "
+          f"{wall:.2f} s (incl. warm-up)  [{card}]")
+    check(plain == 0, f"plain versions ran {plain}x on the card")
+    check(launches["pyr_down"] == tracked,
+          f"pyramid launches {launches['pyr_down']} != {tracked}")
+    check(launches["finish"] == launches["window_gather"] == 0,
+          f"finish or gather launched: {launches}")
+    check(run.frames_done == tracked and run.consumed_init_frame,
+          f"{run.frames_done} frames done")
+    rows, vpf, segs = video_rows(run)
+    check(len(rows) > 10 and np.isfinite(rows).all(),
+          f"{len(rows)} csv rows, finite {np.isfinite(rows).all()}")
+    err = float(np.linalg.norm(rows[len(rows) // 2:].mean(0) - vp))
+    print(f"[video] {len(rows)} csv rows, {len(segs)} segments, VP shown "
+          f"on {int(np.isfinite(vpf[:, 0]).sum())} of {tracked} frames; "
+          f"late-trajectory VP error vs planted {vp.round(2).tolist()}: "
+          f"{err:.2f} px (limit {VP_ERR_LIMIT})")
+    check(err < VP_ERR_LIMIT, f"VP error {err} px")
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for label, prefetch, plain in (("prefetch 0", 0, False),
+                                   ("prefetch 2", 2, False),
+                                   ("plain pyramid, prefetch 0", 0, True)):
+        ctx = (patched(sparse, "build_pyramid", blur.build_pyramid_reference)
+               if plain else contextlib.nullcontext())
+        with ctx:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            timed = video_run(frames, prefetch=prefetch)
+            end.record()
+            torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        print(f"[time] VideoPipeline {label}: {ms / tracked:.3f} ms per "
+              f"tracked frame ({tracked} frames in {ms:.1f} ms; host wall "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms)  [{card}]")
+        check(same_rows(run, timed), f"{label}: csv rows, shown VPs or "
+              f"segments differ from the counted run")
+    with tempfile.TemporaryDirectory() as tmp:
+        first = video_run(frames[:V_SPLIT])
+        ck = first.save_checkpoint(os.path.join(tmp, "ck.npz"))
+        second = video_run(frames[V_SPLIT:], resume=ck)
+    check(first.csv_rows + second.csv_rows == run.csv_rows
+          and first.vp_per_frame + second.vp_per_frame == run.vp_per_frame,
+          "the checkpointed split run differs from the uninterrupted one")
+    print(f"[video] equal (np.array_equal) to the counted run: prefetch 0, "
+          f"prefetch 2, the plain pyramid, and a split run checkpointed "
+          f"after {(V_SPLIT - 1) // V_CHUNK} chunks and resumed in a fresh "
+          f"VideoPipeline")
+    return launches
 
 
 def main() -> int:
@@ -1722,10 +1878,23 @@ def main() -> int:
           f"{max(rates) / 30:.1f} x 30 fps streams)  [{card}]")
     if profile:
         profile_serving(staging, card)
+    del staging
+
+    # --- 15. single-stream VP pipeline, counted, and its checks --------------
+    t0 = time.perf_counter()
+    v_frames, v_vp = video_frames(dev)
+    print(f"[data] single-stream clip {v_frames.shape} u8 BGR: "
+          f"{time.perf_counter() - t0:.1f} s (set-up)")
+    # --- 16. single-stream timing (inside video_phases) ----------------------
+    v_launches = video_phases(v_frames, v_vp, card)
+    if profile:
+        # --- 17. where a single-stream run's time goes -----------------------
+        profile_stages("video", lambda: video_run(v_frames), VIDEO_STAGES,
+                       V_FRAMES - 1, card)
         # last: once the anatomy copies' CUDA modules are loaded, the
         # profiler loses launches of later traces (seen on the card)
         level_anatomy(stacks, plan, cfg, card)
-    del stacks
+    del stacks, v_frames
 
     report = {"kernels": [
         {"name": f"fused_lk_level[{v}]", "route": "cuda", "source": SOURCE,
@@ -1740,7 +1909,10 @@ def main() -> int:
         for v in REPLACES]}
     for k in s_kernels:
         report["kernels"].append(dict(k, launches=s_launches[k["name"]]))
-    report["kernels"].append(dict(pyr_kernel, launches=launches["pyr_down"]))
+    # launches: the dense video's; the single-stream run's beside it
+    report["kernels"].append(dict(
+        pyr_kernel, launches=launches["pyr_down"],
+        single_stream_launches=v_launches["pyr_down"]))
     path_of = {"local_warp": "B", "fused_lk_level_precomputed": "B"}
     for k in p_kernels:
         report["kernels"].append(dict(

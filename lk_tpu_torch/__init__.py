@@ -12,10 +12,14 @@ Subpackages
 ops        image primitives: pyramid, blur, gradients, box sums, resize,
            ROI masks, color, tone, and the serving finish (CUDA + plain)
 features   Shi–Tomasi corners
-flow       dense pyramidal LK (fused level: CUDA + plain) and the batched
-           sparse tracker (window gather: CUDA + plain)
+flow       dense pyramidal LK (fused level: CUDA + plain), the per-point
+           sparse tracker and the batched one (window gather: CUDA + plain)
 geometry   flow lines, cross points, the VP state machine, motion classes
-pipeline   batched VP serving: state, step, MultiStreamPipeline
+pipeline   the VP pipeline: state, step, VideoPipeline (one video, with
+           checkpoints and prefetch), MultiStreamPipeline (batched
+           serving); the LK1/LK2 masked tracker
+io         chunk prefetchers and the output sinks (vps_<video>.csv)
+utils      state checkpoints
 csrc       CUDA sources, built with nvcc at first use (_build.py)
 """
 
@@ -32,4 +36,7 @@ from lk_tpu_torch.flow.dense import (  # noqa: F401
     dense_pyramidal_lk_multistream,
     dense_pyramidal_lk_video,
 )
-from lk_tpu_torch.pipeline.runner import MultiStreamPipeline  # noqa: F401
+from lk_tpu_torch.pipeline.runner import (  # noqa: F401
+    MultiStreamPipeline,
+    VideoPipeline,
+)

@@ -45,6 +45,19 @@ def _max_pool3(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x4, 3, stride=1).reshape(lead + x.shape[-2:])
 
 
+def good_features_to_track(
+    img: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    cfg: FeatureConfig = FeatureConfig(),
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Up to ``cfg.max_corners`` corners of (..., H, W) images: ((...,
+    max_corners, 2) xy, (..., max_corners) valid).  ``mask``: optional 0/1
+    float (H, W) — corners only where mask > 0 (the reference's ROI
+    sub-masks, LK_Final.py:488)."""
+    return good_features_from_response(min_eig_response(img, cfg.block_size),
+                                       mask, cfg)
+
+
 def good_features_from_response(
     resp: torch.Tensor,
     mask: Optional[torch.Tensor],

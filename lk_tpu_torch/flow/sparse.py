@@ -1,14 +1,22 @@
-"""The batched sparse pyramidal Lucas–Kanade tracker (PyTorch port).
+"""The sparse pyramidal Lucas–Kanade trackers (PyTorch port).
 
-Counterpart of ``lk_tpu/flow/sparse.py``'s batched tracker:
-``_level_row_bands``, ``fold_tracking_levels``, ``track_points_batched`` and
-``track_points_batched_prepped``, with OpenCV's semantics as there (Scharr
-gradients of the previous frame sampled with the window's bilinear weights,
-min-eig/area gate, <= max_iters Newton steps with the eps stop and the
-oscillation half-step, status and err at level 0).
+Counterpart of ``lk_tpu/flow/sparse.py``: the per-point tracker
+(``build_tracking_pyramid``, ``_sample_patch``, ``_track_one_level``,
+``_track_one``, ``track_points``) and the batched tracker
+(``_level_row_bands``, ``fold_tracking_levels``, ``track_points_batched``
+and ``track_points_batched_prepped``), with OpenCV's semantics as there
+(Scharr gradients of the previous frame sampled with the window's bilinear
+weights, min-eig/area gate, <= max_iters Newton steps with the eps stop and
+the oscillation half-step, status and err at level 0).
 
-The window gather is ``gather_windows``, the counterpart of
-``_gather_windows_pallas``: a CUDA tensor goes to the kernel
+``track_points`` is the single-stream pipeline's tracker: every iteration
+samples its window from the whole REFLECT_101-padded level at the clamped
+corner (no superwindow: that is a deviation of the batched path only).  The
+prev and next pyramids come from one ``build_pyramid`` call on the stacked
+pair (one pyramid-kernel launch on the card).
+
+The batched tracker's window gather is ``gather_windows``, the counterpart
+of ``_gather_windows_pallas``: a CUDA tensor goes to the kernel
 ``lk_tpu_torch/csrc/window_gather.cu``, a CPU tensor to
 ``gather_windows_reference`` (full-frame Scharr of the folded level, then
 index gathers — the JAX package's ``pallas_windows=False`` path).  The two
@@ -22,11 +30,16 @@ Translation notes:
   ``any(active)`` runs exactly ``cfg.max_iters`` masked iterations with no
   host sync.  That is the same function: once every point is inactive an
   iteration changes nothing (its step, ``inside_ok`` and ``active`` are all
-  masked by ``active``), and the iteration count only feeds ``osc``.
+  masked by ``active``), and the iteration count only feeds ``osc``: a
+  point still active at iteration j has been active since iteration 0, so
+  its own count is j.
 * ``sample_next``'s shift-select sum over every offset is a TPU workaround;
   here it is a direct gather of the two taps per axis, ``(1-g)*a + g*b``:
   the other terms of the TPU form are exact zeros added in ascending order,
   so the two are the same arithmetic.
+* ``jnp.pad(mode="reflect")`` reflects again where the pad reaches past
+  the far edge (a coarse level of a small frame): ``reflect_index`` is
+  that periodic reflection.
 
 Functions run where their tensors are.
 """
@@ -34,6 +47,7 @@ Functions run where their tensors are.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 from torch.profiler import record_function
@@ -201,6 +215,171 @@ def fold_tracking_levels(imgs: torch.Tensor, cfg: LKConfig = LKConfig(),
     levels = build_pyramid(imgs, cfg.max_level)
     bands = _level_row_bands(imgs.shape[1], cfg, row_band)
     return tuple(_fold(lv, bd, pad) for lv, bd in zip(levels, bands))
+
+
+# ---------------------------------------------------------------------------
+# the per-point tracker (single stream)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=64)
+def reflect_index(n: int, before: int, after: int,
+                  device: torch.device) -> torch.Tensor:
+    """Source indices of an axis of length n padded by ``before``/``after``
+    with REFLECT_101, reflected again wherever the pad reaches past the far
+    edge: ``np.pad`` / ``jnp.pad(mode="reflect")`` for any pad width."""
+    i = torch.arange(-before, n + after, device=device)
+    if n == 1:
+        return torch.zeros_like(i)
+    period = 2 * n - 2
+    i = torch.remainder(i, period)
+    return torch.where(i >= n, period - i, i)
+
+
+def build_tracking_pyramid(img: torch.Tensor, max_level: int, pad: int):
+    """Pyramid of (..., H, W) planes (one ``build_pyramid`` call for all of
+    them) whose levels are REFLECT_101-padded by ``pad`` pixels, so windows
+    of points near the border read reflected content
+    (cv.buildOpticalFlowPyramid's border)."""
+    out = []
+    for lv in build_pyramid(img, max_level):
+        h, w = lv.shape[-2:]
+        out.append(lv.index_select(-2, reflect_index(h, pad, pad, lv.device))
+                   .index_select(-1, reflect_index(w, pad, pad, lv.device)))
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _window_geometry(win_w: int, win_h: int, pad: int, hp: int, wp: int,
+                     device: torch.device):
+    """Constants of the window sampling on one (hp, wp) padded level, as
+    (x, y) pairs: the window's half size, the bounds of OpenCV's 'inside'
+    test (the integer corner within [-win, size) of the unpadded level),
+    the corner's upper clamp; and the (win_h+1, win_w+1) patch's offsets
+    into the flattened level."""
+    f32, i64 = torch.float32, torch.int64
+    half = torch.tensor([(win_w - 1) * 0.5, (win_h - 1) * 0.5], dtype=f32,
+                        device=device)
+    lo = torch.tensor([-win_w, -win_h], dtype=f32, device=device)
+    hi = torch.tensor([wp - 2 * pad, hp - 2 * pad], dtype=f32, device=device)
+    cmax = torch.tensor([wp - win_w - 1, hp - win_h - 1], dtype=i64,
+                        device=device)
+    offs = (torch.arange(win_h + 1, device=device)[:, None] * wp
+            + torch.arange(win_w + 1, device=device))
+    return half, lo, hi, cmax, offs
+
+
+def _sample_patch(planes, q, geom, pad: int, wp: int):
+    """Bilinear (win_h, win_w) windows centred at q (n, 2) of flattened
+    padded planes ((C,) Hp*Wp): the (win_h+1, win_w+1) patch at the
+    integer corner, clamped into the level, then the four taps weighted
+    and summed in lk_tpu's ``_sample_patch`` order.  Returns the ((C,) n,
+    win_h, win_w) windows and OpenCV's 'inside' test of each point."""
+    half, lo, hi, cmax, offs = geom
+    qq = q - half
+    iq = torch.floor(qq)
+    f = qq - iq
+    inside = ((iq >= lo) & (iq < hi)).all(dim=-1)
+    c = torch.minimum((iq.to(torch.int64) + pad).clamp(min=0), cmax)
+    raw = planes[..., (c[:, 1] * wp + c[:, 0])[:, None, None] + offs]
+    # w[y][x] = wx * wy with wx, wy in (1 - f, f): w00 = (1-fx)(1-fy),
+    # w01 = fx(1-fy), w10 = (1-fx)fy, w11 = fx fy
+    s = torch.stack([1.0 - f, f], dim=-1)
+    w = (s[:, 0, None, :] * s[:, 1, :, None]).reshape(-1, 4, 1, 1)
+    out = (raw[..., :-1, :-1] * w[:, 0] + raw[..., :-1, 1:] * w[:, 1]
+           + raw[..., 1:, :-1] * w[:, 2] + raw[..., 1:, 1:] * w[:, 3])
+    return out, inside
+
+
+def _track_one_level(prev_pad, ix_pad, iy_pad, next_pad, prev_pt, next_pt,
+                     status, cfg: LKConfig, pad: int, is_level0: bool):
+    """One pyramid level of refinement of every point (``lk_tpu``'s, vmapped
+    over points): the prev/ix/iy windows and their structure tensor, the
+    min-eig gate, then ``cfg.max_iters`` masked Newton steps.  Returns
+    (next_pt, status, p_win, the level's sampling geometry)."""
+    win_w, win_h = cfg.win_size
+    hp, wp = prev_pad.shape
+    geom = _window_geometry(win_w, win_h, pad, hp, wp, prev_pad.device)
+    wins, prev_inside = _sample_patch(
+        torch.stack([prev_pad, ix_pad, iy_pad]).reshape(3, -1), prev_pt,
+        geom, pad, wp)
+    p_win, ix_win, iy_win = wins
+    ixy_win = wins[1:]
+    a11 = (ix_win * ix_win).sum(dim=(1, 2))
+    a12 = (ix_win * iy_win).sum(dim=(1, 2))
+    a22 = (iy_win * iy_win).sum(dim=(1, 2))
+    det = a11 * a22 - a12 * a12
+    min_eig = (a22 + a11 - torch.sqrt((a11 - a22) ** 2 + 4.0 * a12 * a12)) \
+        / (2.0 * win_w * win_h)
+    # OpenCV's 1e-4 threshold on its fixed-point scale is min_eig/1024 on
+    # the normalized-gradient scale (lk_tpu/flow/sparse.py)
+    good_g = (min_eig >= cfg.min_eig_threshold * 1024.0) & (det > 1e-7)
+    inv_det = torch.where(det > 1e-7, 1.0 / det, 0.0)
+    a_diag = torch.stack([a22, a11])
+    if is_level0:
+        status = status & prev_inside & good_g
+    do_refine = prev_inside & good_g
+
+    eps2 = cfg.eps * cfg.eps
+    next_flat = next_pad.reshape(-1)
+    nxt = next_pt
+    prev_delta = torch.zeros_like(nxt)
+    active = do_refine
+    inside_ok = torch.ones_like(active)
+    for j in range(cfg.max_iters):
+        j_win, next_inside = _sample_patch(next_flat, nxt, geom, pad, wp)
+        b = ((j_win - p_win) * ixy_win).sum(dim=(2, 3))     # (b1, b2)
+        # (a12 b2 - a22 b1, a12 b1 - a11 b2) / det
+        delta = ((a12 * b.flip(0) - a_diag * b) * inv_det).T
+        step_ok = active & next_inside
+        new_nxt = torch.where(step_ok[:, None], nxt + delta, nxt)
+        still = step_ok & ~((delta * delta).sum(dim=-1) <= eps2)
+        if j > 0:           # OpenCV's damping: successive steps cancel
+            osc = ((delta + prev_delta).abs() < 0.01).all(dim=-1)
+            new_nxt = torch.where((step_ok & osc)[:, None],
+                                  new_nxt - delta * 0.5, new_nxt)
+            still = still & ~osc
+        inside_ok = torch.where(active, next_inside, inside_ok)
+        nxt, prev_delta, active = new_nxt, delta, still
+    if is_level0:
+        status = status & (inside_ok | ~do_refine)
+    return nxt, status, p_win, geom
+
+
+def track_points(prev_img: torch.Tensor, next_img: torch.Tensor,
+                 pts: torch.Tensor, valid: torch.Tensor,
+                 cfg: LKConfig = LKConfig()):
+    """Track ``pts`` (N, 2) float (x, y) from prev_img to next_img (H, W).
+
+    Returns (new_pts (N, 2) f32, status (N,) bool, err (N,) f32): err is
+    the mean |window difference| at the final position at level 0.
+    ``valid`` masks inactive slots (passthrough, status False).  The
+    equivalent of cv.calcOpticalFlowPyrLK (reference LK_Final.py:531-532).
+    """
+    pad = max(cfg.win_size) + 2
+    with record_function("tracker.pyramid"):
+        levels = build_tracking_pyramid(torch.stack([prev_img, next_img]),
+                                        cfg.max_level, pad)
+    pts = pts.to(torch.float32)
+    status = valid
+    next_pt = pts / float(2 ** cfg.max_level)
+    for level in range(cfg.max_level, -1, -1):
+        prev_pad, next_pad = levels[level]
+        with record_function("tracker.scharr"):
+            ix_pad, iy_pad = scharr_derivatives(prev_pad)
+        prev_pt = pts / float(2 ** level)
+        if level != cfg.max_level:
+            next_pt = next_pt * 2.0
+        with record_function("tracker.refine"):
+            next_pt, status, p_win, geom = _track_one_level(
+                prev_pad, ix_pad, iy_pad, next_pad, prev_pt, next_pt, status,
+                cfg, pad, is_level0=level == 0)
+    with record_function("tracker.refine"):
+        # err: mean |window difference| at the final position (OpenCV's)
+        j_win, _ = _sample_patch(next_pad.reshape(-1), next_pt, geom, pad,
+                                 next_pad.shape[1])
+        err = (j_win - p_win).abs().mean(dim=(1, 2))
+        new_pts = torch.where(valid[:, None], next_pt, pts)
+    return new_pts, status & valid, err
 
 
 # ---------------------------------------------------------------------------

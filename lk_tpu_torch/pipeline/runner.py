@@ -1,25 +1,33 @@
-"""Batched serving: counterpart of ``lk_tpu.pipeline.runner``'s batched path
-(``_cached_finish``, ``_compact_masked_rows``, ``_compact_chunk_outputs``,
-``make_batched_chunk_runner``, the staged feed and ``MultiStreamPipeline``
-with its per-stream sinks).
+"""The VP pipeline's runners and host loops: counterpart of
+``lk_tpu.pipeline.runner`` (``_cached_runner``, ``_cached_preprocess``,
+``_cached_finish``, ``_compact_masked_rows``, ``_compact_chunk_outputs``,
+``make_chunk_runner``, ``make_batched_chunk_runner``, ``VideoPipeline``
+and ``MultiStreamPipeline``).  ``_cached_runner`` is ``make_chunk_runner``
+itself, cached.
 
-A chunk is a Python loop over its T frames with the whole stream batch in
-each step (``lk_tpu``'s ``lax.scan``); the JAX package's ``jit`` caches
-become ``functools.lru_cache``'d builders of masks and steps, keyed by the
-frozen configs.  On the card the finish is the CUDA kernel of
-``ops/finish.py`` and the tracker's gather that of ``flow/sparse.py``;
+A chunk is a Python loop over its T frames (``lk_tpu``'s ``lax.scan``):
+one stream per step in ``make_chunk_runner``, the whole stream batch in
+each step in ``make_batched_chunk_runner``.  The JAX package's ``jit``
+caches become ``functools.lru_cache``'d constructors of masks and steps,
+keyed by the frozen configs, the geometry and the device.  On the card the
+tracker's pyramid, the finish and the batched tracker's gather are the
+CUDA kernels of ``ops/blur.py``, ``ops/finish.py`` and ``flow/sparse.py``;
 with tensors on the CPU, their plain versions.
 
-Not ported here (ROADMAP.md Queue 1, the serving slice's remainder): the
-single-stream ``VideoPipeline.feed``/``run`` and ``make_chunk_runner``,
-``MultiStreamPipeline.feed`` (raw BGR with a host preprocess), ``mesh``,
-``start_async_drains``, checkpoints and prefetch.
+``VideoPipeline`` is the reference's ``Run()`` (LK_Final.py:508-705) for
+one video: frames in, ``csv_rows`` (vps_<video>.csv) and the other sinks
+out, with checkpoints and a prefetching producer thread.
+``MultiStreamPipeline`` batches B same-geometry streams through one step
+and drains each stream's outputs into its own ``VideoPipeline``.
+
+Not ported here (ROADMAP.md Queue 1, the parallel layer):
+``MultiStreamPipeline``'s ``mesh``.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import List, Optional, Tuple
+from typing import Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,8 +39,10 @@ from lk_tpu_torch.ops import finish as _finish_ops
 from lk_tpu_torch.ops.rasterize import build_roi_masks
 from lk_tpu_torch.ops.resize import resize_area
 from lk_tpu_torch.pipeline.state import (CompactChunkOutputs, FrameOutputs,
-                                         PipelineState, init_pipeline_state)
-from lk_tpu_torch.pipeline.step import make_step, tracker_row_band
+                                         PipelineState, init_pipeline_state,
+                                         without_stream_axis)
+from lk_tpu_torch.pipeline.step import (make_step, preprocess_frame,
+                                        tracker_row_band)
 
 
 def _cached_finish(cfg: PipelineConfig):
@@ -93,9 +103,59 @@ def _compact_chunk_outputs(outs: FrameOutputs,
                                rest=rest)
 
 
-def _stack_frames(frames: List[FrameOutputs]) -> FrameOutputs:
-    """Per-frame (B, ...) outputs -> (B, T, ...)."""
-    return FrameOutputs(*(torch.stack(x, dim=1) for x in zip(*frames)))
+def _stack_frames(frames: List[FrameOutputs], dim: int) -> FrameOutputs:
+    """Per-frame outputs stacked along a new frame axis ``dim``: 0 for one
+    stream's (T, ...), 1 for a batch's (B, T, ...)."""
+    return FrameOutputs(*(torch.stack(x, dim=dim) for x in zip(*frames)))
+
+
+@functools.lru_cache(maxsize=32)
+def make_chunk_runner(cfg: PipelineConfig, frame_size: Tuple[int, int],
+                      device="cuda"):
+    """(run_chunk, init_fn, masks) of one stream for one geometry on
+    ``device``; cached, so N same-shape streams share one runner and one
+    mask set.
+
+    run_chunk(state, frames (T, H, W)) -> (state, outputs stacked on T, or
+    their compaction with ``cfg.out_cap``).  init_fn(first_gray (H, W)) ->
+    the state with the first-frame detection applied (reference
+    LK_Final.py:481-492 detects on the first frame before looping)."""
+    width, height = frame_size
+    roi_mask, sub_masks = build_roi_masks(width, height, cfg.roi)
+    step, detect, _ = make_step(cfg, frame_size, roi_mask, sub_masks,
+                                device=device)
+
+    def run_chunk(state: PipelineState, frames: torch.Tensor):
+        outs = []
+        for t in range(frames.shape[0]):
+            state, o = step(state, frames[t])
+            outs.append(o)
+        outs = _stack_frames(outs, dim=0)
+        if cfg.out_cap > 0:
+            outs = _compact_chunk_outputs(outs, cfg.out_cap)
+        return state, outs
+
+    def init_fn(first_gray: torch.Tensor) -> PipelineState:
+        grays = first_gray.to(torch.float32)[None]
+        pts, valid = detect(grays)
+        return without_stream_axis(init_pipeline_state(grays, cfg)._replace(
+            pts=pts, valid=valid))
+
+    return run_chunk, init_fn, (roi_mask, sub_masks)
+
+
+@functools.lru_cache(maxsize=32)
+def _cached_preprocess(cfg: PipelineConfig, frame_size: Tuple[int, int],
+                       device: torch.device):
+    """(..., Hs, Ws, 3) u8 BGR numpy -> (..., H, W) f32 processed frames on
+    ``device`` (``preprocess_frame``)."""
+    width, height = frame_size
+
+    def pre(frames_u8: np.ndarray) -> torch.Tensor:
+        x = torch.from_numpy(np.ascontiguousarray(frames_u8)).to(device)
+        return preprocess_frame(x, cfg, height, width)
+
+    return pre
 
 
 @functools.lru_cache(maxsize=16)
@@ -121,7 +181,7 @@ def make_batched_chunk_runner(cfg: PipelineConfig,
         for t in range(frames.shape[1]):
             carry, o = step_batched(carry, frames[:, t])
             outs.append(o)
-        outs = _stack_frames(outs)
+        outs = _stack_frames(outs, dim=1)
         if cfg.out_cap > 0:
             with record_function("serve.compact"):
                 outs = _compact_chunk_outputs(outs, cfg.out_cap)
@@ -136,9 +196,12 @@ def make_batched_chunk_runner(cfg: PipelineConfig,
 
 
 def _to_numpy(tree):
-    """A NamedTuple of tensors (nested) -> the same of numpy arrays."""
+    """A NamedTuple of tensors (nested) -> the same of numpy arrays (numpy
+    leaves pass through)."""
     if isinstance(tree, torch.Tensor):
         return tree.cpu().numpy()
+    if isinstance(tree, np.ndarray):
+        return tree
     return type(tree)(*(_to_numpy(x) for x in tree))
 
 
@@ -148,27 +211,127 @@ def _index(tree, b: int):
     return type(tree)(*(_index(x, b) for x in tree))
 
 
-class StreamSink:
-    """Per-stream host sinks of the batched pipeline: ``lk_tpu``'s
-    ``VideoPipeline`` bookkeeping and ``_drain``.
+class VideoPipeline:
+    """The host loop of one video on ``device`` (the card unless the caller
+    names another device): feeds frames, drains the outputs into the
+    sinks, the reference's ``Run()``.
 
     ``csv_rows`` reproduces vps_<video>.csv (a row per VP update and per
-    shown frame, LK_Final.py:612-614,637-638), ``segments`` the accepted
-    flow lines, ``cross_points`` the accepted CPs, ``vp_per_frame`` the
-    shown VP or None per frame."""
+    shown frame, LK_Final.py:612-614,637-638,722), ``segments`` the
+    accepted flow lines (line_segments.pkl, LK_Final.py:375-377,559),
+    ``cross_points`` the accepted CPs, ``vp_per_frame`` the shown VP or
+    None per frame, ``motion_rows`` the motion-class fractions."""
 
-    def __init__(self, cfg: PipelineConfig):
+    def __init__(self, cfg: PipelineConfig, src_size: Tuple[int, int],
+                 chunk: int = 8, host_preprocess: bool = False,
+                 device="cuda"):
         self.cfg = cfg
+        self.src_w, self.src_h = src_size
+        self.height = cfg.derived_height(self.src_h, self.src_w)
+        self.width = cfg.width
+        self.chunk = chunk
+        self.device = torch.device(device)
+        # host_preprocess: gray + INTER_AREA resize with cv2 on the host
+        # (u8-rounded, as the reference), the finish on the device;
+        # otherwise the whole preprocess runs on the device
+        self.host_preprocess = host_preprocess
+        frame_size = (self.width, self.height)
+        self._run, self.init_fn, self.masks = make_chunk_runner(
+            cfg, frame_size, self.device)
+        self._pre = _cached_preprocess(cfg, frame_size, self.device)
+        self._finish = _cached_finish(cfg)
+        self.state: Optional[PipelineState] = None
         self.csv_rows: List[Tuple[float, float]] = []
         self.segments: List[dict] = []
         self.cross_points: List[Tuple[float, float]] = []
         self.motion_rows: List[Tuple[float, ...]] = []
         self.vp_per_frame: List[Optional[Tuple[float, float]]] = []
         self.frames_done = 0
+        # True once the first fed frame was used for initialization (fresh
+        # runs); resumed runs process every fed frame
+        self.consumed_init_frame = False
+        self._pending_resume: Optional[str] = None
+        self.last_prefetcher = None       # set by run(prefetch > 0)
+        self._pending_outs: list = []
+        # chunks buffered before a host readback: each drain synchronizes
+        # with the device and stalls feeding on the bookkeeping
+        self.drain_every = 16
+
+    def drain(self) -> None:
+        """Fetch the buffered chunks' outputs into the host sinks."""
+        pending, self._pending_outs = self._pending_outs, []
+        with record_function("video.drain"):
+            for outs in pending:
+                self._drain(outs)
+
+    def resume_from(self, path: str) -> None:
+        """Restore the pipeline state from a checkpoint at the next feed."""
+        self._pending_resume = path
+
+    def _ckpt_meta(self) -> str:
+        """Identity string tying a checkpoint to this pipeline's config."""
+        return f"{self.width}x{self.height}|{self.cfg!r}"
+
+    def save_checkpoint(self, path: str) -> str:
+        from lk_tpu_torch.utils.checkpoint import save_state
+
+        if self.state is None:
+            raise RuntimeError("no state to checkpoint yet")
+        return save_state(self.state, path, meta=self._ckpt_meta())
+
+    def _ingest(self, frames_u8: np.ndarray) -> torch.Tensor:
+        """(T, Hs, Ws, 3) u8 BGR -> (T, H, W) f32 processed frames on the
+        device."""
+        with record_function("video.ingest"):
+            if self.host_preprocess:
+                import cv2 as cv
+
+                grays = np.empty((len(frames_u8), self.height, self.width),
+                                 np.uint8)
+                for k, f in enumerate(frames_u8):
+                    g = cv.cvtColor(np.asarray(f), cv.COLOR_BGR2GRAY)
+                    grays[k] = cv.resize(g, (self.width, self.height),
+                                         interpolation=cv.INTER_AREA)
+                return self._finish(torch.from_numpy(grays).to(self.device))
+            return self._pre(frames_u8)
+
+    def feed(self, frames_u8: np.ndarray) -> Optional[FrameOutputs]:
+        """Process (T, Hs, Ws, 3) u8 BGR frames; returns the chunk's
+        outputs (on the device)."""
+        return self.feed_gray(self._ingest(frames_u8))
+
+    def feed_gray(self, grays: torch.Tensor) -> Optional[FrameOutputs]:
+        """Process already-ingested (T, H, W) float32 frames on the device
+        (the prefetch path runs ``_ingest`` on the producer thread)."""
+        if self.state is None:
+            if self._pending_resume is not None:
+                # the whole state (prev_gray too) comes back: every fed
+                # frame is processed, none consumed for initialization
+                from lk_tpu_torch.utils.checkpoint import load_state
+
+                template = without_stream_axis(
+                    init_pipeline_state(grays[:1], self.cfg))
+                self.state = load_state(template, self._pending_resume,
+                                        meta=self._ckpt_meta())
+                self._pending_resume = None
+            else:
+                self.state = self.init_fn(grays[0])
+                self.consumed_init_frame = True
+                grays = grays[1:]
+                if grays.shape[0] == 0:
+                    return None
+        self.state, outs = self._run(self.state, grays)
+        self._pending_outs.append(outs)
+        if len(self._pending_outs) >= self.drain_every:
+            self.drain()
+        return outs
 
     def _drain(self, outs, n_valid: Optional[int] = None) -> None:
-        """Append one stream's chunk outputs (numpy, (T, ...)); only the
-        first ``n_valid`` frames belong to the stream."""
+        """Append one stream's chunk outputs ((T, ...) tensors or numpy);
+        only the first ``n_valid`` frames belong to the stream (ragged
+        lifecycles: ``MultiStreamPipeline`` keeps stepping a finished slot
+        until it is recycled, and its outputs are dropped here)."""
+        outs = _to_numpy(outs)
         compact = isinstance(outs, CompactChunkOutputs)
         if compact:
             comp, outs = outs, outs.rest
@@ -221,28 +384,60 @@ class StreamSink:
             for a, b in zip(seg_s[seg_m], seg_e[seg_m]))
         self.frames_done += nv
 
+    def run(self, frames: Iterable[np.ndarray], prefetch: int = 0) -> None:
+        """Consume an iterable of single (Hs, Ws, 3) u8 frames in chunks.
+
+        ``prefetch > 0`` decodes and ingests ``prefetch`` chunks ahead on a
+        producer thread (``io.prefetch.ChunkPrefetcher``), overlapping host
+        decode with the device: the replacement for the reference's
+        synchronous ``cap.read()`` loop (LK_Final.py:509-517)."""
+        if prefetch > 0:
+            from lk_tpu_torch.io.prefetch import ChunkPrefetcher
+
+            pf = ChunkPrefetcher(frames, self.chunk, depth=prefetch,
+                                 transform=self._ingest)
+            self.last_prefetcher = pf
+            try:
+                for grays in pf:
+                    self.feed_gray(grays)
+            finally:
+                pf.close()
+            self.drain()
+            return
+        buf: List[np.ndarray] = []
+        for f in frames:
+            buf.append(f)
+            if len(buf) == self.chunk + (1 if self.state is None else 0):
+                self.feed(np.stack(buf))
+                buf.clear()
+        if buf:
+            self.feed(np.stack(buf))
+        self.drain()
+
 
 class MultiStreamPipeline:
     """B same-geometry streams batched through one pipeline step on
     ``device`` (the card unless the caller names another device).
 
-    Feed processed float32 frames (``feed_processed``) or a time-major
-    (F, B, H, W) u8 staging tensor on the device (``feed_staged``, the
-    serving hot path).  The first feed consumes one frame per stream for
-    the initial detection.  Per-stream host bookkeeping goes to the B
-    ``StreamSink``s in ``pipes``."""
+    Feed raw (B, T, Hs, Ws, 3) u8 BGR frames (``feed``), processed float32
+    frames (``feed_processed``) or a time-major (F, B, H, W) u8 staging
+    tensor on the device (``feed_staged``, the serving hot path).  The
+    first feed consumes one frame per stream for the initial detection.
+    Per-stream host bookkeeping goes to the B ``VideoPipeline`` sinks in
+    ``pipes`` (all sharing one cached runner and mask set)."""
 
     def __init__(self, cfg: PipelineConfig, src_size: Tuple[int, int],
-                 n_streams: int, chunk: int = 16, device="cuda"):
+                 n_streams: int, chunk: int = 16,
+                 host_preprocess: bool = True, device="cuda"):
         self.cfg = cfg
         self.n_streams = n_streams
         self.chunk = chunk
         self.src_size = src_size
+        self.host_preprocess = host_preprocess
         self.device = torch.device(device)
-        src_w, src_h = src_size
-        self.width = cfg.width
-        self.height = cfg.derived_height(src_h, src_w)
-        self.pipes = [StreamSink(cfg) for _ in range(n_streams)]
+        self.pipes = [self._sink() for _ in range(n_streams)]
+        self.width = self.pipes[0].width
+        self.height = self.pipes[0].height
         self._run, self._init, self.masks = make_batched_chunk_runner(
             cfg, (self.width, self.height), self.device)
         self._finish = _cached_finish(cfg)
@@ -250,29 +445,48 @@ class MultiStreamPipeline:
         # pending entries: (chunk outputs, per-slot n_valid | None, sinks)
         self._pending: List[tuple] = []
         self.drain_every = 16
+        self._drain_worker = None
+        self._drain_q = None
+        self._drain_err: Optional[BaseException] = None
+        # ragged lifecycles: a finished slot keeps being stepped with the
+        # padding frames the caller stages, its outputs dropped at the
+        # drain by the per-chunk n_valid counts; assign_stream swaps a
+        # fresh state into the slot and retires the old sink
         self.active = np.ones(n_streams, dtype=bool)
-        self.retired: List[StreamSink] = []
+        self.retired: List[VideoPipeline] = []
+
+    def _sink(self) -> VideoPipeline:
+        return VideoPipeline(self.cfg, src_size=self.src_size,
+                             chunk=self.chunk,
+                             host_preprocess=self.host_preprocess,
+                             device=self.device)
 
     def finish_stream(self, b: int) -> None:
-        """Mark slot ``b`` ended: later chunks drop its outputs."""
+        """Mark slot ``b`` ended: later chunks drop its outputs (pass
+        ``n_valid`` for the chunk it ends in, if that end is not
+        chunk-aligned).  Its sink stays readable until ``assign_stream``
+        recycles the slot."""
         self.active[b] = False
 
-    def assign_stream(self, b: int, first_gray: torch.Tensor) -> StreamSink:
+    def assign_stream(self, b: int, first_gray: torch.Tensor) -> VideoPipeline:
         """Recycle slot ``b`` for a new stream whose first processed gray
         frame (H, W) is consumed for its initial detection; the old sink
         moves to ``retired``.  Returns the fresh sink."""
         if self.states is None:
             raise RuntimeError("assign_stream before the first feed")
         self.retired.append(self.pipes[b])
-        sink = StreamSink(self.cfg)
-        self.pipes[b] = sink
-        fresh = self._init(torch.as_tensor(first_gray, dtype=torch.float32,
-                                           device=self.device)[None])
+        p = self._sink()
+        p.consumed_init_frame = True
+        self.pipes[b] = p
+        fresh = p.init_fn(torch.as_tensor(first_gray, dtype=torch.float32,
+                                          device=self.device))
         self.states = _swap_slot(self.states, fresh, b)
         self.active[b] = True
-        return sink
+        return p
 
     def _chunk_valid(self, t: int, n_valid) -> Optional[np.ndarray]:
+        """Per-slot valid-frame counts of a t-frame chunk: an explicit
+        ``n_valid`` wins; else active slots own the whole chunk."""
         if n_valid is not None:
             nv = np.asarray(n_valid, np.int64).copy()
             if nv.shape != (self.n_streams,):
@@ -283,21 +497,68 @@ class MultiStreamPipeline:
             return None
         return np.where(self.active, t, 0).astype(np.int64)
 
+    def start_async_drains(self) -> None:
+        """Move the readback and the bookkeeping of periodic drains to a
+        worker thread, so they no longer stall feeding.  ``drain()`` at the
+        end of the stream flushes the worker's queue and waits for it; a
+        worker's error is raised there (or at the next periodic drain)."""
+        import queue
+        import threading
+
+        if self._drain_worker is not None:
+            return
+        self._drain_q = queue.Queue(maxsize=4)
+
+        def work():
+            while True:
+                item = self._drain_q.get()
+                try:
+                    if item is None:
+                        return
+                    self._drain_now(item)
+                except BaseException as e:   # raised at the next drain()
+                    self._drain_err = e
+                finally:
+                    self._drain_q.task_done()
+
+        self._drain_worker = threading.Thread(target=work, name="lk-drain",
+                                              daemon=True)
+        self._drain_worker.start()
+
+    def _start(self, first: torch.Tensor) -> None:
+        """The first feed: init states from the first frames (B, H, W)."""
+        self.states = self._init(first)
+        for p in self.pipes:
+            p.consumed_init_frame = True
+
     def _run_chunk(self, grays: torch.Tensor, n_valid) -> None:
         self.states, outs = self._run(self.states, grays)
+        # the sinks ride along, so a later assign_stream cannot take this
+        # chunk's rows from the sink that owned the slot
         self._pending.append((outs, self._chunk_valid(grays.shape[1],
                                                       n_valid),
                               list(self.pipes)))
         if len(self._pending) >= self.drain_every:
-            self.drain()
+            self._drain_enqueue()
+
+    def feed(self, batch: np.ndarray, n_valid=None) -> None:
+        """batch: (B, T, Hs, Ws, 3) u8 BGR frames, one row per stream,
+        ingested by each stream's ``VideoPipeline``."""
+        grays = torch.stack([p._ingest(batch[b])
+                             for b, p in enumerate(self.pipes)])
+        self.feed_processed(grays, n_valid=n_valid)
 
     def feed_processed(self, grays: torch.Tensor, n_valid=None) -> None:
-        """grays: (B, T, H, W) processed float32 frames on the device."""
+        """grays: (B, T, H, W) processed float32 frames on the device.
+        ``n_valid``: optional (B,) counts of this chunk's processed frames
+        that belong to each slot's stream (the consumed init frame not
+        counted); by default the whole chunk for active slots, 0 for
+        finished ones."""
         if grays.shape[0] != self.n_streams:
             raise ValueError(f"{grays.shape[0]} streams fed to a "
                              f"{self.n_streams}-stream pipeline")
         if self.states is None:
-            self.states = self._init(grays[:, 0].to(torch.float32))
+            self._start(grays[:, 0].to(torch.float32))
             grays = grays[:, 1:]
             if grays.shape[1] == 0:
                 return
@@ -322,7 +583,7 @@ class MultiStreamPipeline:
                 return self._finish(x)
 
         if self.states is None:
-            self.states = self._init(prep(staging_fb[t]))
+            self._start(prep(staging_fb[t]))
             t += 1
             n -= 1
             if n == 0:
@@ -334,9 +595,30 @@ class MultiStreamPipeline:
         self._run_chunk(g, n_valid)
 
     def drain(self) -> None:
-        """Fetch every pending chunk's outputs and run the per-stream
-        bookkeeping."""
+        """Fetch every pending chunk's outputs into the per-stream sinks;
+        with async drains, hand them to the worker and wait for it."""
         pending, self._pending = self._pending, []
+        if self._drain_q is not None:
+            self._drain_q.put(pending)
+            self._drain_q.join()
+            self._raise_drain_err()
+            return
+        self._drain_now(pending)
+
+    def _raise_drain_err(self) -> None:
+        if self._drain_err is not None:
+            err, self._drain_err = self._drain_err, None
+            raise err
+
+    def _drain_enqueue(self) -> None:
+        pending, self._pending = self._pending, []
+        if self._drain_q is not None:
+            self._raise_drain_err()        # fail fast, do not fill the queue
+            self._drain_q.put(pending)
+        else:
+            self._drain_now(pending)
+
+    def _drain_now(self, pending) -> None:
         with record_function("serve.drain"):
             for outs, nv, pipes in pending:
                 host = _to_numpy(outs)
@@ -351,9 +633,10 @@ class MultiStreamPipeline:
 
 
 def _swap_slot(states, fresh, b: int):
-    """states with batch slot b replaced by the single-stream ``fresh``."""
+    """Batched ``states`` with slot b replaced by the single-stream
+    ``fresh``."""
     if isinstance(states, torch.Tensor):
         out = states.clone()
-        out[b] = fresh[0]
+        out[b] = fresh
         return out
     return type(states)(*(_swap_slot(s, f, b) for s, f in zip(states, fresh)))

@@ -1,10 +1,12 @@
-"""Pipeline state and outputs of the batched VP pipeline: counterpart of
+"""Pipeline state and outputs of the VP pipeline: counterpart of
 ``lk_tpu.pipeline.state``.
 
-Every leaf carries a leading stream axis B (the batched runner's layout in
-``lk_tpu`` after its ``vmap``).  ``state_from_numpy`` takes ``lk_tpu``'s
-state, fetched to numpy, to the port's, so both packages can run on from
-the same state.
+The batched pipeline's leaves carry a leading stream axis B (the batched
+runner's layout in ``lk_tpu`` after its ``vmap``); the single-stream
+pipeline's have lk_tpu's single-stream shapes, without it
+(``with_stream_axis`` / ``without_stream_axis`` convert).
+``state_from_numpy`` takes ``lk_tpu``'s state, fetched to numpy, to the
+port's batched layout, so both packages can run on from the same state.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from lk_tpu_torch.geometry.vanishing import VPState, init_vp_state
 
 
 class PipelineState(NamedTuple):
+    """Shapes as the batched pipeline holds them; the single-stream
+    pipeline's leaves lack the leading B."""
     prev_gray: torch.Tensor   # (B, H, W) f32 — processed previous frame
     pts: torch.Tensor         # (B, G, S, 2) f32 tracking-point slots
     valid: torch.Tensor       # (B, G, S) bool
@@ -83,6 +87,24 @@ def init_pipeline_state(first_gray: torch.Tensor,
         vp=init_vp_state(cfg, b, device=dev),
         tp_ult=torch.zeros((b,), dtype=torch.int64, device=dev),
     )
+
+
+def with_stream_axis(tree):
+    """A single-stream state or outputs (NamedTuple of tensors, nested)
+    as a batch of one stream."""
+    if isinstance(tree, torch.Tensor):
+        return tree[None]
+    return type(tree)(*(with_stream_axis(x) for x in tree))
+
+
+def without_stream_axis(tree):
+    """The one stream of a batch of one, with single-stream shapes."""
+    if isinstance(tree, torch.Tensor):
+        if tree.shape[:1] != (1,):
+            raise ValueError(f"a batch of one stream expected, got a leaf "
+                             f"of shape {tuple(tree.shape)}")
+        return tree[0]
+    return type(tree)(*(without_stream_axis(x) for x in tree))
 
 
 def _leaf(x, dtype, device, batched: bool) -> torch.Tensor:

@@ -1,19 +1,19 @@
-"""The per-frame step of the batched VP pipeline: counterpart of
+"""The per-frame step of the VP pipeline: counterpart of
 ``lk_tpu.pipeline.step`` (``preprocess_frame``, ``check_inside``,
-``compact_slots``, ``tracker_row_band`` and ``make_step``'s ``detect``,
-``_pre``, ``_post`` and ``step_batched``).
+``compact_slots``, ``tracker_row_band`` and ``make_step``'s ``step``,
+``detect``, ``_pre``, ``_post`` and ``step_batched``).
 
 The layers run in the reference's order (LK_Final.py:508-705): track ->
 ROI containment gate -> flow-line stats + EMA filter -> cross-point / VP
-pair scan -> show/hide -> replenishment -> counters.  Every function works
-on a batch of B streams (leading axis), which ``lk_tpu`` gets by ``vmap``.
+pair scan -> show/hide -> replenishment -> counters.  ``_pre``, ``_post``
+and ``detect`` work on a batch of B streams (leading axis), which
+``lk_tpu`` gets by ``vmap``; the single-stream ``step`` tracks with the
+per-point ``track_points`` and runs them on a batch of one.
 
 Host reads: one per frame, of the largest candidate-pair count (the pair
 scan's trip count) and of whether any stream replenishes (detection runs
-only then, as ``lk_tpu``'s ``lax.cond`` on ``any(trigger)``).
-
-The single-stream ``step`` calls the per-point tracker ``track_points``,
-which is not ported yet: it raises ``NotImplementedError``.
+only then, as ``lk_tpu``'s ``lax.cond`` on the trigger, ``any`` of it
+for a batch).
 """
 
 from __future__ import annotations
@@ -27,7 +27,8 @@ from torch.profiler import record_function
 from lk_tpu_torch.config import PipelineConfig
 from lk_tpu_torch.features.shi_tomasi import (good_features_from_response,
                                               min_eig_response)
-from lk_tpu_torch.flow.sparse import track_points_batched_prepped
+from lk_tpu_torch.flow.sparse import (track_points,
+                                      track_points_batched_prepped)
 from lk_tpu_torch.geometry.classify import classify_flow_lines
 from lk_tpu_torch.geometry.flowlines import flow_line_filter, flow_line_stats
 from lk_tpu_torch.geometry.vanishing import (frame_candidates,
@@ -38,11 +39,8 @@ from lk_tpu_torch.ops.color import bgr_to_gray
 from lk_tpu_torch.ops.resize import resize_area
 from lk_tpu_torch.ops.tone import contrast_brightness
 from lk_tpu_torch.pipeline.state import (FrameOutputs, PipelineState,
-                                         slots_per_group)
-
-SINGLE_STREAM_STEP = ("the single-stream step (per-point track_points) is "
-                      "not ported: ROADMAP.md Queue 1, the serving slice's "
-                      "remainder")
+                                         slots_per_group, with_stream_axis,
+                                         without_stream_axis)
 
 
 def preprocess_frame(bgr: torch.Tensor, cfg: PipelineConfig, out_h: int,
@@ -92,8 +90,8 @@ def make_step(cfg: PipelineConfig, frame_size: Tuple[int, int],
 
     frame_size: (W, H) of the processed frames; roi_mask (H, W) and
     sub_masks (4, H, W) are the host masks of ``ops.rasterize``, moved to
-    ``device`` here once.  ``step`` (single stream) raises
-    ``NotImplementedError``; ``detect(grays (B, H, W))`` and
+    ``device`` here once.  ``step(state, gray (H, W))`` (one stream,
+    single-stream state), ``detect(grays (B, H, W))`` and
     ``step_batched((states, prev_folded), grays (B, H, W))`` run on
     ``device``."""
     width, height = frame_size
@@ -121,9 +119,6 @@ def make_step(cfg: PipelineConfig, frame_size: Tuple[int, int],
     crop_off = torch.tensor([x0, y0], dtype=torch.float32, device=device)
     sub_crop = torch.as_tensor(np.asarray(sub_masks)[:, y0:y1, x0:x1],
                                dtype=torch.float32, device=device)
-
-    def step(state, gray):
-        raise NotImplementedError(SINGLE_STREAM_STEP)
 
     def detect(gray: torch.Tensor):
         """Per-group corner pools in sub-mask order (LK_Final.py:481-492)
@@ -232,6 +227,30 @@ def make_step(cfg: PipelineConfig, frame_size: Tuple[int, int],
         )
         return new_state, outputs
 
+    def _detect_if(ctx, grays: torch.Tensor):
+        """Detection of the B frames when any stream replenishes (read in
+        ``_pre``'s host read), else empty pools."""
+        if ctx["any_trigger"]:
+            with record_function("step.detect"):
+                return detect(grays)
+        b = grays.shape[0]
+        return (torch.zeros((b, g, s, 2), dtype=torch.float32,
+                            device=grays.device),
+                torch.zeros((b, g, s), dtype=torch.bool, device=grays.device))
+
+    def step(state: PipelineState, gray: torch.Tensor):
+        """One frame of one stream: all G*S slots tracked by the per-point
+        tracker, then ``_pre``/``_post`` on a batch of one stream."""
+        gray = gray.to(torch.float32)
+        p1, st, _err = track_points(state.prev_gray, gray,
+                                    state.pts.reshape(g * s, 2),
+                                    state.valid.reshape(g * s), cfg.lk)
+        states = with_stream_axis(state)
+        grays = gray[None]
+        ctx = _pre(states, p1[None], st[None])
+        states, outs = _post(states, grays, ctx, *_detect_if(ctx, grays))
+        return without_stream_axis(states), without_stream_axis(outs)
+
     def step_batched(carry, grays: torch.Tensor):
         """Step B streams at once; carry = (states, prev_folded), the
         previous frame batch's tracker fold (``fold_tracking_levels``)."""
@@ -242,15 +261,7 @@ def make_step(cfg: PipelineConfig, frame_size: Tuple[int, int],
             prev_folded, grays, states.pts.reshape(b, g * s, 2),
             states.valid.reshape(b, g * s), cfg.lk, row_band=row_band)
         ctx = _pre(states, p1, st)
-        if ctx["any_trigger"]:
-            with record_function("step.detect"):
-                det_pts, det_valid = detect(grays)
-        else:
-            det_pts = torch.zeros((b, g, s, 2), dtype=torch.float32,
-                                  device=grays.device)
-            det_valid = torch.zeros((b, g, s), dtype=torch.bool,
-                                    device=grays.device)
-        states, outs = _post(states, grays, ctx, det_pts, det_valid)
+        states, outs = _post(states, grays, ctx, *_detect_if(ctx, grays))
         return (states, next_folded), outs
 
     return step, detect, step_batched

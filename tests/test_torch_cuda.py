@@ -248,6 +248,79 @@ def test_serving_kernels_match_plain_path(cuda_device):
         assert p.cross_points == q.cross_points
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(483, 860), (241, 433), (40, 64)])
+def test_track_points_kernel_pyramid_equals_plain(cuda_device, hw):
+    """The per-point tracker with the pyramid kernel equals it with the
+    plain pyramid (torch.equal), one pyramid launch per call for the
+    stacked (prev, next) pair; 40x64 pads its coarsest level past its far
+    edge."""
+    from lk_tpu_torch.config import LKConfig
+
+    h, w = hw
+    frames = _frames(2, h, w, cuda_device, seed=h)
+    rng = np.random.default_rng(w)
+    pts = torch.from_numpy(np.concatenate([
+        rng.uniform([0, 0], [w, h], (40, 2)),
+        [[-3, 5], [w + 4, h / 2], [w - 0.5, h - 0.5], [-50, -50]]])
+        .astype(np.float32)).to(cuda_device)
+    valid = torch.from_numpy(rng.random(44) < 0.9).to(cuda_device)
+    blur.reset_counters()
+    got = sparse.track_points(frames[0], frames[1], pts, valid, LKConfig())
+    assert (blur.kernel_launches, blur.plain_calls) == (1, 0)
+    real = sparse.build_pyramid
+    sparse.build_pyramid = blur.build_pyramid_reference
+    try:
+        want = sparse.track_points(frames[0], frames[1], pts, valid,
+                                   LKConfig())
+    finally:
+        sparse.build_pyramid = real
+    torch.cuda.synchronize()
+    assert blur.plain_calls == 1
+    for g, r in zip(got, want):
+        assert torch.equal(g, r)
+    assert bool(got[1].any())
+
+
+@pytest.mark.cuda
+def test_video_pipeline_kernel_equals_plain(cuda_device):
+    """A short single-stream VideoPipeline run on the card: one pyramid
+    launch per tracked frame, no plain call, and the same rows as the run
+    with the plain pyramid."""
+    import dataclasses
+
+    from lk_tpu_torch.models import PRESETS
+    from lk_tpu_torch.pipeline.runner import VideoPipeline
+    from scipy.ndimage import gaussian_filter
+
+    rng = np.random.default_rng(3)
+    base = gaussian_filter(rng.random((220, 360), dtype=np.float32) * 255, 2)
+    bgr = [np.repeat(base[t:t + 180, t:t + 320, None], 3, -1)
+           .astype(np.uint8) for t in range(13)]
+
+    def run():
+        p = VideoPipeline(dataclasses.replace(PRESETS["final"], width=320),
+                          src_size=(320, 180), chunk=4)
+        p.run(iter(bgr))
+        return p
+
+    blur.reset_counters()
+    finish.reset_counters()
+    sparse.reset_counters()
+    kern = run()
+    assert (blur.kernel_launches, blur.plain_calls) == (12, 0)
+    assert finish.kernel_launches == sparse.kernel_launches == 0
+    real = sparse.build_pyramid
+    sparse.build_pyramid = blur.build_pyramid_reference
+    try:
+        plain = run()
+    finally:
+        sparse.build_pyramid = real
+    assert kern.frames_done == 12
+    assert kern.csv_rows == plain.csv_rows
+    assert kern.vp_per_frame == plain.vp_per_frame
+
+
 # (frames shape, pad_hw or None, levels)
 PYRAMID_CASES = {
     # the 1080p base's seam: L1 rows 540-543 read pad rows replicating

@@ -1,7 +1,7 @@
 """lk_tpu_torch as a package: nothing of JAX, lk_tpu or OpenCV, its own
-configs equal to lk_tpu's, unported branches refuse, the entry point holds
-lk_tpu's flagship program, and chip_smoke.py refuses to run without a
-GPU."""
+configs equal to lk_tpu's, the unported branch refuses and the
+single-stream step runs, the entry point holds lk_tpu's flagship program,
+and chip_smoke.py refuses to run without a GPU."""
 
 import dataclasses
 import os
@@ -41,7 +41,9 @@ PORT_MODULES = (
     "lk_tpu_torch.flow.sparse", "lk_tpu_torch.geometry.classify",
     "lk_tpu_torch.geometry.crosspoints", "lk_tpu_torch.geometry.flowlines",
     "lk_tpu_torch.geometry.vanishing", "lk_tpu_torch.pipeline.runner",
-    "lk_tpu_torch.pipeline.state", "lk_tpu_torch.pipeline.step")
+    "lk_tpu_torch.pipeline.state", "lk_tpu_torch.pipeline.step",
+    "lk_tpu_torch.pipeline.tracker", "lk_tpu_torch.utils.checkpoint",
+    "lk_tpu_torch.io.prefetch", "lk_tpu_torch.io.sink")
 
 
 def test_import_pulls_no_jax():
@@ -101,21 +103,34 @@ def _pair(h=64, w=128):
 
 @pytest.mark.parametrize("case", ["padded_build", "single_stream_step"])
 def test_unported_branch_raises(case):
+    """padded_build is not ported and refuses; the single-stream step (a
+    stub until the serving slice's remainder) runs one frame on the CPU
+    and keeps lk_tpu's single-stream shapes."""
     prv, nxt = _pair()
     cfg = LKConfig(max_level=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        if case == "padded_build":
+    if case == "padded_build":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             td.dense_pyramidal_lk_video(torch.stack([prv, nxt]), cfg,
                                         DenseLKConfig(use_pallas_fused=True,
                                                       padded_build=True))
-        else:
-            from lk_tpu_torch.ops.rasterize import build_roi_masks
-            from lk_tpu_torch.pipeline.step import make_step
+        return
+    from lk_tpu_torch.ops.rasterize import build_roi_masks
+    from lk_tpu_torch.pipeline.runner import make_chunk_runner
+    from lk_tpu_torch.pipeline.step import make_step
 
-            pcfg = tc.PipelineConfig(width=128)
-            full, subs = build_roi_masks(128, 64, pcfg.roi)
-            step, _, _ = make_step(pcfg, (128, 64), full, subs, device="cpu")
-            step(None, prv)
+    pcfg = tc.PipelineConfig(width=128)
+    full, subs = build_roi_masks(128, 64, pcfg.roi)
+    step, _, _ = make_step(pcfg, (128, 64), full, subs, device="cpu")
+    _, init_fn, _ = make_chunk_runner(pcfg, (128, 64), device="cpu")
+    state = init_fn(prv * 255)
+    new, out = step(state, nxt * 255)
+    assert new.prev_gray.shape == (64, 128)
+    assert new.pts.shape == state.pts.shape == (pcfg.num_groups,
+                                                pcfg.tp_num
+                                                // pcfg.num_groups, 2)
+    assert new.tp_ult.shape == () and int(new.tp_ult) == 1
+    assert out.show_mask.shape == () and out.vp_xy.shape == (2,)
+    assert torch.equal(new.prev_gray, nxt * 255)
 
 
 def test_entry_is_path_a():
