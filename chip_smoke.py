@@ -66,8 +66,9 @@ run_vp_app runs it.
      with --profile also each path's host enqueue and device time by
      kernel group;
  10. serving scenes: 64 synthetic road streams expanding from a planted
-     VP per stream (apps/serve.py's), textures made with numpy/scipy, the
-     64-frame staging array rendered on the card;
+     VP per stream (apps/serve.py's), each the package's
+     SyntheticRoadStream (seed s) rendered on the card into the 64-frame
+     staging array;
  11. serving main path: one pass of MultiStreamPipeline.feed_staged +
      drain, counters reset just before and read just after (the finish
      kernel once per chunk plus once for the init frame, the window gather
@@ -99,7 +100,32 @@ run_vp_app runs it.
      chunks and resumed in a fresh VideoPipeline, equal too;
  17. only with --profile: a single-stream run's device and host time by
      stage (video.*, tracker.*, step.*), launches per frame and the
-     device's busy share.
+     device's busy share;
+ 18. the VP apps: ``lk_tpu_torch.apps.{final,vp_detect,classify}.main``
+     with --synthetic (the package's 1280x720 stream, rendered on the
+     card), 49 frames (the init frame + 3 chunks of 16), --out-dir a
+     temporary directory, counted (one pyramid launch per tracked frame,
+     48, no other kernel, no plain call); a well-formed vps_synthetic.csv,
+     the late-trajectory VP error < 25 px, classify's motion csv; rows,
+     shown VPs and segments equal (np.array_equal) to the same app run
+     with the plain pyramid; ms per tracked frame and frames/s of each
+     counted run (host clock around main, synchronized);
+ 19. the tracker apps: ``masking.compute`` and ``roadlines.compute`` at
+     their 960-px width on 33 frames, counted (one pyramid launch per
+     tracked frame, 32, no plain call), segments equal to the plain-
+     pyramid run, roadlines' Hough result on the card within 1e-4 rad
+     (theta) and 1e-2 px (rho) of the same call on the CPU;
+ 20. the serving app: ``serve.run_server`` at its defaults (32 streams,
+     64 frames, 1280x720 source staged on the card at 860x483), then with
+     --async-drains, each counted over its warm-up and timed passes (the
+     finish once per chunk and once for the init frame, the gather 3
+     times and the pyramid once per processed frame plus once per chunk,
+     no plain call), every stream with VP output, the mean VP error < 25
+     px; the async run's rows equal the sync run's, and the first 4
+     streams' rows within ROWS_TOL of a 4-stream run through the plain
+     versions; the aggregate frames/s of each timed pass.
+
+Phases 18-20 print their wall time.
 
 Prints a {"kernels": [...]} JSON line (each entry's "ms" is the kernel's
 own device time per call from torch.profiler, its launches counted in the
@@ -157,6 +183,13 @@ KERNEL_TOL = 1e-6                      # kernel vs plain; 0 expected (the
 # default chunk of 16; 97 frames = the init frame + 6 chunks.
 V_FRAMES, V_CHUNK = 97, 16
 V_SPLIT = 1 + 3 * V_CHUNK              # frames before the checkpoint
+# The apps (phases 18-20) on their --synthetic source, the package's
+# 1280x720 stream (VP (0.5 w, 0.45 h) for the VP apps and the tracker
+# apps, serve's per stream), processed at 860 px wide (960 for the
+# tracker apps).
+A_SRC = (1280, 720)
+A_FRAMES = 1 + 3 * V_CHUNK             # phase 18: init + 3 chunks of 16
+T_FRAMES = 1 + 2 * V_CHUNK             # phase 19
 # Per-pair paths B and C (path A is lk_tpu_torch.entry's config; the
 # geometry is printed from the port's own functions in phase 6).
 PATH_CFGS = {
@@ -304,6 +337,37 @@ def dense_counts() -> tuple[dict, int]:
                   pyr_down=blur.kernel_launches)
     return counts, (lk.plain_calls + sum(wk.plain_calls.values())
                     + blur.plain_calls)
+
+
+def timed_call(fn, *args, **kw):
+    """(result, seconds) of fn on the host clock, synchronized."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def kernel_counts():
+    """(launches of the apps' kernels, plain calls of every kernel)."""
+    from lk_tpu_torch.flow import sparse
+    from lk_tpu_torch.ops import blur, finish
+
+    _, plain = dense_counts()
+    return ({"pyr_down": blur.kernel_launches,
+             "finish": finish.kernel_launches,
+             "window_gather": sparse.kernel_launches},
+            plain + finish.plain_calls + sparse.plain_calls)
+
+
+def plain_tracker_pyramid():
+    """Context: the trackers' pyramid through its plain version."""
+    from lk_tpu_torch.flow import sparse
+    from lk_tpu_torch.ops import blur
+
+    return patched(sparse, "build_pyramid", blur.build_pyramid_reference)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1139,55 +1203,24 @@ def perpair_timing(frames0, cfg, card, profile):
 # serving: scenes, main path, kernels vs plain, timing, profile
 # --------------------------------------------------------------------------
 
-def road_staging(dev, n_streams=SB, n_frames=SF, h=SH, w=SW, zoom=S_ZOOM,
-                 n_tex=16, seed=7):
-    """(n_frames, n_streams, h, w) u8 staging of forward-driving scenes, as
-    lk_tpu.io.video.SyntheticRoadStream makes them: a blurred-noise texture
-    1.6x the frame expanding from the stream's planted VP by ``zoom`` per
-    frame (bilinear, REFLECT_101), clipped and truncated to u8.  Stream s
-    takes texture s % n_tex and apps/serve.py's VP (0.45 + 0.01 (s % 5)) w,
-    0.45 h.  Textures on the host (numpy/scipy), frames on the card."""
+def road_staging(dev, n_streams=SB, n_frames=SF, h=SH, w=SW, zoom=S_ZOOM):
+    """(n_frames, n_streams, h, w) u8 staging of forward-driving scenes:
+    stream s is the package's ``lk_tpu_torch.io.video.SyntheticRoadStream``
+    (seed s, apps/serve.py's VP (0.45 + 0.01 (s % 5)) w, 0.45 h), gray,
+    rendered on the card; and the planted VPs."""
     import torch
-    from scipy.ndimage import gaussian_filter
+    from lk_tpu_torch.io.video import SyntheticRoadStream
 
-    rng = np.random.default_rng(seed)
-    th, tw = int(h * 1.6), int(w * 1.6)
-    texs = []
-    for _ in range(n_tex):
-        tex = gaussian_filter(rng.random((th, tw), dtype=np.float32) * 255,
-                              1.5, mode="mirror")
-        tex += gaussian_filter(rng.random((th, tw), dtype=np.float32) * 255,
-                               6.0, mode="mirror")
-        texs.append((tex - tex.min()) / (tex.max() - tex.min()) * 255)
-    tex = torch.from_numpy(np.stack(texs)).to(dev)
     out = torch.empty((n_frames, n_streams, h, w), dtype=torch.uint8,
                       device=dev)
-    ys = torch.arange(h, dtype=torch.float64, device=dev)[None, :, None]
-    xs = torch.arange(w, dtype=torch.float64, device=dev)[None, None, :]
-    scale = zoom ** -torch.arange(n_frames, dtype=torch.float64,
-                                  device=dev)[:, None, None]
-
-    def refl(i, n):
-        i = i.abs()
-        return torch.where(i >= n, 2 * n - 2 - i, i).clamp(0, n - 1)
-
     vps = []
     for s in range(n_streams):
-        vx, vy = w * (0.45 + 0.01 * (s % 5)), h * 0.45
-        vps.append((vx, vy))
-        gx = (scale * xs + (1 - scale) * vx + (tw - w) / 2.0).float()
-        gy = (scale * ys + (1 - scale) * vy + (th - h) / 2.0).float()
-        x0, y0 = torch.floor(gx), torch.floor(gy)
-        fx, fy = gx - x0, gy - y0
-        x0, y0 = x0.long(), y0.long()
-        t = tex[s % n_tex].reshape(-1)
-
-        def at(yy, xx):
-            return t[refl(yy, th) * tw + refl(xx, tw)]
-
-        v = ((1 - fy) * ((1 - fx) * at(y0, x0) + fx * at(y0, x0 + 1))
-             + fy * ((1 - fx) * at(y0 + 1, x0) + fx * at(y0 + 1, x0 + 1)))
-        out[:, s] = v.clamp(0, 255).to(torch.uint8)
+        vp = (w * (0.45 + 0.01 * (s % 5)), h * 0.45)
+        scene = SyntheticRoadStream(width=w, height=h, vp=vp, zoom=zoom,
+                                    seed=s, n_frames=n_frames, color=False,
+                                    device=dev)
+        out[:, s] = scene.gray_frames(0, n_frames)
+        vps.append(vp)
     return out, np.array(vps)
 
 
@@ -1578,7 +1611,7 @@ def video_frames(dev):
     BGR channels, as numpy u8 (V_FRAMES, 1080, 1920, 3); and the planted
     VP in processing coordinates (x 860/1920)."""
     staging, vps = road_staging(dev, n_streams=1, n_frames=V_FRAMES, h=H,
-                                w=W, n_tex=1)
+                                w=W)
     gray = staging[:, 0].cpu().numpy()
     return np.repeat(gray[..., None], 3, axis=-1), vps[0] * (SW / SRC[0])
 
@@ -1622,21 +1655,11 @@ def video_phases(frames, vp, card):
     import tempfile
 
     import torch
-    from lk_tpu_torch.flow import sparse
-    from lk_tpu_torch.ops import blur, finish
 
     tracked = V_FRAMES - 1
-    torch.cuda.synchronize()
     reset_counters()
-    t0 = time.perf_counter()
-    run = video_run(frames, prefetch=2)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"pyr_down": blur.kernel_launches,
-                "finish": finish.kernel_launches,
-                "window_gather": sparse.kernel_launches}
-    _, plain = dense_counts()
-    plain += finish.plain_calls + sparse.plain_calls
+    run, wall = timed_call(video_run, frames, prefetch=2)
+    launches, plain = kernel_counts()
     print(f"[video] VideoPipeline final {SRC[0]}x{SRC[1]} -> {SW}x{SH}, "
           f"chunk {V_CHUNK}, prefetch 2, {V_FRAMES} frames: launches "
           f"{launches} ({launches['pyr_down'] / tracked:.2f} pyramid "
@@ -1664,8 +1687,7 @@ def video_phases(frames, vp, card):
     for label, prefetch, plain in (("prefetch 0", 0, False),
                                    ("prefetch 2", 2, False),
                                    ("plain pyramid, prefetch 0", 0, True)):
-        ctx = (patched(sparse, "build_pyramid", blur.build_pyramid_reference)
-               if plain else contextlib.nullcontext())
+        ctx = plain_tracker_pyramid() if plain else contextlib.nullcontext()
         with ctx:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1693,9 +1715,226 @@ def video_phases(frames, vp, card):
     return launches
 
 
+def app_argv(*extra):
+    return ["--synthetic", "--quiet", *map(str, extra)]
+
+
+def vp_app_phase(card):
+    """Phase 18: final, vp_detect and classify through their main(argv) on
+    the card.  Returns (pyramid launches per app, seconds)."""
+    import csv
+    import importlib
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tracked = A_FRAMES - 1
+    vp = np.array([A_SRC[0] * 0.5, A_SRC[1] * 0.45]) * (SW / A_SRC[0])
+    launches = {}
+    for app in ("final", "vp_detect", "classify"):
+        module = importlib.import_module(f"lk_tpu_torch.apps.{app}")
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = app_argv("--frames", A_FRAMES, "--out-dir", tmp)
+            if app == "classify":
+                argv += ["--motion-csv", os.path.join(tmp, "motion.csv")]
+            reset_counters()
+            pipe, dt = timed_call(module.main, argv)
+            counts, plain = kernel_counts()
+            with open(os.path.join(tmp, "vps_synthetic.csv")) as f:
+                rows = list(csv.reader(f))
+            if app == "classify":
+                with open(os.path.join(tmp, "motion.csv")) as f:
+                    motion = list(csv.reader(f))
+        check(plain == 0, f"{app}: plain versions ran {plain}x")
+        check(counts == {"pyr_down": tracked, "finish": 0,
+                         "window_gather": 0},
+              f"{app}: launches {counts}, expected {tracked} pyramids")
+        check(pipe.frames_done == tracked, f"{app}: {pipe.frames_done} "
+              f"frames done")
+        check(rows[0] == ["x", "y"] and len(rows) - 1 == len(pipe.csv_rows)
+              and all(len(r) == 2 for r in rows[1:]),
+              f"{app}: malformed vps_synthetic.csv")
+        got = np.array(rows[1:], np.float64)
+        check(np.array_equal(got, np.array(pipe.csv_rows, np.float64)
+                             .reshape(-1, 2)) and np.isfinite(got).all(),
+              f"{app}: the csv file differs from the run's rows")
+        check(len(got) > 0, f"{app}: no csv row")
+        err = float(np.linalg.norm(got[len(got) // 2:].mean(0) - vp))
+        check(err < VP_ERR_LIMIT, f"{app}: VP error {err} px")
+        if app == "classify":
+            check(motion[0] == ["static", "away", "toward", "lateral"]
+                  and len(motion) - 1 == tracked,
+                  f"classify: motion csv has {len(motion) - 1} rows")
+        with tempfile.TemporaryDirectory() as tmp, plain_tracker_pyramid():
+            ref = module.main(app_argv("--frames", A_FRAMES, "--out-dir",
+                                       tmp))
+        check(same_rows(pipe, ref), f"{app}: rows, shown VPs or segments "
+              f"differ with the plain pyramid")
+        launches[app] = counts["pyr_down"]
+        print(f"[apps] {app} --synthetic {A_SRC[0]}x{A_SRC[1]} -> "
+              f"{pipe.width}x{pipe.height}, {A_FRAMES} frames: launches "
+              f"{counts}, plain calls {plain}; {len(got)} csv rows (file "
+              f"well formed), {len(pipe.segments)} segments, late-trajectory "
+              f"VP error {err:.2f} px (limit {VP_ERR_LIMIT})"
+              + (f", {len(motion) - 1} motion rows" if app == "classify"
+                 else "")
+              + f"; rows == the plain-pyramid run; {dt * 1e3 / tracked:.2f} "
+              f"ms per tracked frame = {tracked / dt:.1f} frames/s (main, "
+              f"host clock, incl. rendering the source)  [{card}]")
+    wall = time.perf_counter() - t_phase
+    print(f"[apps] phase 18 wall {wall:.1f} s")
+    return launches, wall
+
+
+def tracker_app_phase(card):
+    """Phase 19: masking and roadlines' compute parts on the card."""
+    import importlib
+
+    import torch
+    from lk_tpu_torch.apps import _common
+    from lk_tpu_torch.geometry.hough import hough_road_lines
+
+    t_phase = time.perf_counter()
+    tracked = T_FRAMES - 1
+    launches = {}
+    for app in ("masking", "roadlines"):
+        module = importlib.import_module(f"lk_tpu_torch.apps.{app}")
+        parser = _common.build_parser(app)
+        if app == "roadlines":
+            module.add_args(parser)
+        args = parser.parse_args(app_argv("--frames", T_FRAMES))
+        reset_counters()
+        res, dt = timed_call(module.compute, args)
+        counts, plain = kernel_counts()
+        check(plain == 0, f"{app}: plain versions ran {plain}x")
+        check(counts == {"pyr_down": tracked, "finish": 0,
+                         "window_gather": 0},
+              f"{app}: launches {counts}, expected {tracked} pyramids")
+        check(res.frames == T_FRAMES and res.width == 960,
+              f"{app}: {res.frames} frames at width {res.width}")
+        with plain_tracker_pyramid():
+            ref = module.compute(args)
+        extra = ""
+        if app == "masking":
+            n = len(res.segments)
+            check(n > 0, "masking: no segment")
+            check(res.segments == ref.segments,
+                  "masking: segments differ with the plain pyramid")
+        else:
+            n = len(res.lengths)
+            check(n > 0 and res.hough is not None, "roadlines: no segment")
+            check(res.lengths == ref.lengths and res.angles == ref.angles
+                  and np.array_equal(res.start, ref.start)
+                  and np.array_equal(res.stop, ref.stop),
+                  "roadlines: segments differ with the plain pyramid")
+            moving = torch.from_numpy((res.start != res.stop).any(axis=1))
+            cpu = hough_road_lines(torch.from_numpy(res.start),
+                                   torch.from_numpy(res.stop), moving,
+                                   (res.width, res.height), k=args.hough_k)
+            h = res.hough
+            d_t = float((h.theta.cpu() - cpu.theta).abs().max())
+            d_r = float((h.rho.cpu() - cpu.rho).abs().max())
+            d_acc = float((h.accumulator.cpu() - cpu.accumulator).abs().max()
+                          / cpu.accumulator.abs().max())
+            check(d_t <= 1e-4 and d_r <= 1e-2,
+                  f"roadlines: Hough on the card vs the CPU: theta "
+                  f"{d_t} rad, rho {d_r} px")
+            lines = ", ".join(f"({np.degrees(t):.1f} deg, {r:.1f} px, "
+                              f"{v:.0f})" for t, r, v in zip(
+                                  h.theta.tolist(), h.rho.tolist(),
+                                  h.votes.tolist()))
+            extra = (f"; Hough on the card vs the CPU: max |dtheta| "
+                     f"{d_t:.3g} rad (limit 1e-4), max |drho| {d_r:.3g} px "
+                     f"(limit 1e-2), accumulator {d_acc:.3g} of its max; "
+                     f"lines {lines}")
+        launches[app] = counts["pyr_down"]
+        print(f"[apps] {app}.compute --synthetic {A_SRC[0]}x{A_SRC[1]} -> "
+              f"{res.width}x{res.height}, {T_FRAMES} frames: launches "
+              f"{counts}, plain calls {plain}, {n} segments == the plain-"
+              f"pyramid run{extra}; {dt * 1e3 / tracked:.2f} ms per tracked "
+              f"frame = {tracked / dt:.1f} frames/s  [{card}]")
+    wall = time.perf_counter() - t_phase
+    print(f"[apps] phase 19 wall {wall:.1f} s")
+    return launches, wall
+
+
+def serve_app_phase(card):
+    """Phase 20: serve.run_server at its defaults, then with
+    --async-drains, counted; rows against the plain versions."""
+    from lk_tpu_torch.apps import serve
+
+    t_phase = time.perf_counter()
+    parser = serve.build_parser()
+    runs = {}
+    launches = None
+    for label, flags in (("sync", []), ("async", ["--async-drains"])):
+        args = parser.parse_args(["--quiet", *flags])
+        reset_counters()
+        run, dt = timed_call(serve.run_server, args)
+        counts, plain = kernel_counts()
+        frames = args.frames - 1
+        chunks = -(-frames // args.chunk)
+        want = {"pyr_down": 2 * (frames + chunks),
+                "finish": 2 * (chunks + 1),
+                "window_gather": 2 * 3 * frames}
+        ms = run.server
+        check(plain == 0, f"serve {label}: plain versions ran {plain}x")
+        check(counts == want, f"serve {label}: launches {counts} over the "
+              f"warm-up and timed passes, expected {want}")
+        check((ms.width, ms.height) == (SW, SH)
+              and all(p.frames_done == frames for p in ms.pipes),
+              f"serve {label}: {ms.width}x{ms.height}, frames done "
+              f"{[p.frames_done for p in ms.pipes]}")
+        with_vp = sum(1 for p in ms.pipes if len(p.csv_rows))
+        check(with_vp == args.streams,
+              f"serve {label}: {with_vp}/{args.streams} streams with VP "
+              f"output")
+        vps = np.array([(args.width * (0.45 + 0.01 * (s % 5)),
+                         args.height * 0.45)
+                        for s in range(args.streams)]) * (SW / args.width)
+        errs = vp_errors(ms, vps)
+        check(float(np.mean(errs)) < VP_ERR_LIMIT,
+              f"serve {label}: mean VP error {np.mean(errs)} px")
+        runs[label] = run
+        launches = counts
+        print(f"[apps] serve {label}: {args.streams} streams x "
+              f"{args.frames} frames {args.width}x{args.height} -> "
+              f"{ms.width}x{ms.height}, chunk {args.chunk}: launches "
+              f"{counts} (warm-up + timed pass), plain calls {plain}, "
+              f"{with_vp}/{args.streams} streams with VP output, mean VP "
+              f"error {np.mean(errs):.2f} px; timed pass "
+              f"{run.agg:.1f} frames/s aggregate "
+              f"({run.wall_s * 1e3 / frames:.2f} ms per "
+              f"{args.streams}-stream frame; run_server wall "
+              f"{dt:.1f} s incl. staging and warm-up)  [{card}]")
+    for a, b in zip(runs["sync"].server.pipes, runs["async"].server.pipes):
+        check(a.csv_rows == b.csv_rows and a.vp_per_frame == b.vp_per_frame,
+              "serve: --async-drains rows differ from the sync run")
+    args = parser.parse_args(["--quiet", "--streams", "4"])
+    with plain_versions():
+        ref = serve.run_server(args)
+    worst = 0.0
+    for b in range(4):
+        x = np.array(runs["sync"].server.pipes[b].csv_rows,
+                     np.float64).reshape(-1, 2)
+        y = np.array(ref.server.pipes[b].csv_rows, np.float64).reshape(-1, 2)
+        check(x.shape == y.shape, f"serve stream {b}: {len(x)} csv rows vs "
+              f"{len(y)} through the plain versions")
+        worst = max(worst, float(np.abs(x - y).max(initial=0.0)))
+    check(worst <= ROWS_TOL, f"serve: rows differ by {worst} px")
+    wall = time.perf_counter() - t_phase
+    print(f"[apps] serve: --async-drains rows == the sync run's; streams "
+          f"0-3 through the plain versions: same counts, max |drow| "
+          f"{worst:.3g} px (tolerance {ROWS_TOL}); aggregate "
+          f"{runs['sync'].agg:.1f} (sync) / {runs['async'].agg:.1f} (async) "
+          f"frames/s  [{card}]")
+    print(f"[apps] phase 20 wall {wall:.1f} s")
+    return launches, wall
+
+
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     profile = "--profile" in sys.argv[1:]
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1896,6 +2135,13 @@ def main() -> int:
         level_anatomy(stacks, plan, cfg, card)
     del stacks, v_frames
 
+    # --- 18-20. the apps -----------------------------------------------------
+    app_launches, w18 = vp_app_phase(card)
+    t_launches, w19 = tracker_app_phase(card)
+    serve_launches, w20 = serve_app_phase(card)
+    print(f"[apps] phases 18-20 wall {w18 + w19 + w20:.1f} s "
+          f"({w18:.1f} + {w19:.1f} + {w20:.1f})")
+
     report = {"kernels": [
         {"name": f"fused_lk_level[{v}]", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[v], "launches": launches[v],
@@ -1908,15 +2154,22 @@ def main() -> int:
          "library_ms": None}
         for v in REPLACES]}
     for k in s_kernels:
-        report["kernels"].append(dict(k, launches=s_launches[k["name"]]))
-    # launches: the dense video's; the single-stream run's beside it
+        report["kernels"].append(dict(
+            k, launches=s_launches[k["name"]],
+            serve_app_launches=serve_launches[k["name"]]))
+    # launches: the dense video's; the single-stream run's and the apps'
+    # beside it
     report["kernels"].append(dict(
         pyr_kernel, launches=launches["pyr_down"],
-        single_stream_launches=v_launches["pyr_down"]))
+        single_stream_launches=v_launches["pyr_down"],
+        app_launches=dict(app_launches, **t_launches,
+                          serve=serve_launches["pyr_down"])))
     path_of = {"local_warp": "B", "fused_lk_level_precomputed": "B"}
     for k in p_kernels:
         report["kernels"].append(dict(
             k, launches=p_launches[path_of[k["name"]]][k["name"]]))
+    print(f"[time] chip_smoke.py wall {time.perf_counter() - t_start:.1f} s "
+          f"(the build included)")
     print(json.dumps(report))
     print(card)
     print(json.dumps({"ok": True, "device": {

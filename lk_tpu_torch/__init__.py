@@ -10,16 +10,24 @@ take tensors run where those tensors are.
 Subpackages
 -----------
 ops        image primitives: pyramid, blur, gradients, box sums, resize,
-           ROI masks, color, tone, and the serving finish (CUDA + plain)
+           ROI masks, color, tone, homography, and the serving finish
+           (CUDA + plain)
 features   Shi–Tomasi corners
 flow       dense pyramidal LK (fused level: CUDA + plain), the per-point
            sparse tracker and the batched one (window gather: CUDA + plain)
-geometry   flow lines, cross points, the VP state machine, motion classes
+geometry   flow lines, cross points, the VP state machine, motion classes,
+           Hough road-line voting
 pipeline   the VP pipeline: state, step, VideoPipeline (one video, with
            checkpoints and prefetch), MultiStreamPipeline (batched
            serving); the LK1/LK2 masked tracker
-io         chunk prefetchers and the output sinks (vps_<video>.csv)
-utils      state checkpoints
+io         video sources (the synthetic road stream rendered on the
+           device), LKRAW and its g++-built native reader, chunk
+           prefetchers and the output sinks (vps_<video>.csv)
+apps       the five reference apps and the serving benchmark
+           (python -m lk_tpu_torch.apps <app>); apps.display the viewer
+viz        the reference's figures (matplotlib / OpenCV, imported when
+           drawing)
+utils      state checkpoints, profiling
 csrc       CUDA sources, built with nvcc at first use (_build.py)
 """
 

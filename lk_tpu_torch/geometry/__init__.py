@@ -1,2 +1,2 @@
-"""Flow lines, cross points, the VP state machine and motion classes
-(PyTorch)."""
+"""Flow lines, cross points, the VP state machine, motion classes and
+Hough road-line voting (PyTorch)."""

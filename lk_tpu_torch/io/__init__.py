@@ -1,1 +1,3 @@
-"""Host I/O: chunk prefetchers and the output sinks."""
+"""Host I/O: video sources (the file reader, the synthetic road stream
+rendered on the device), the LKRAW container and its native reader, chunk
+prefetchers and the output sinks."""

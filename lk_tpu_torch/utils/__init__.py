@@ -1,1 +1,2 @@
-"""Utilities: state checkpoints."""
+"""Utilities: state checkpoints, profiling (FPS meter, spans, device
+traces)."""

@@ -519,3 +519,130 @@ def test_precomputed_level_matches_plain(cuda_device, case, shape,
     assert torch.isfinite(got).all()
     assert torch.equal(got, want)
     assert torch.equal(flow, init)
+
+
+# --- the apps on the card ----------------------------------------------------
+
+def _reset_all():
+    for m in (blur, finish, sparse, lk, wk):
+        m.reset_counters()
+
+
+class _PlainTracker:
+    """Context: the per-point and batched trackers' pyramid, the finish
+    and the gather through their plain versions (module attributes looked
+    up at call time)."""
+
+    def __enter__(self):
+        self.old = (sparse.build_pyramid, finish.fused_finish,
+                    sparse.gather_windows)
+        sparse.build_pyramid = blur.build_pyramid_reference
+        finish.fused_finish = finish.fused_finish_reference
+        sparse.gather_windows = sparse.gather_windows_reference
+
+    def __exit__(self, *exc):
+        (sparse.build_pyramid, finish.fused_finish,
+         sparse.gather_windows) = self.old
+
+
+@pytest.mark.cuda
+def test_stream_on_card_equals_cpu(cuda_device):
+    """The synthetic stream rendered on the card is the CPU's, within one
+    u8 level (the same f32/f64 elementwise operations: 0 expected)."""
+    from lk_tpu_torch.io.video import SyntheticRoadStream
+
+    kw = dict(width=430, height=242, seed=2, zoom=1.03, n_frames=24)
+    card = SyntheticRoadStream(**kw, device=cuda_device)
+    cpu = SyntheticRoadStream(**kw, device="cpu")
+    assert card.tex.device.type == "cuda"
+    assert torch.equal(card.tex.cpu(), cpu.tex)
+    d = (card.gray_frames(0, 24).cpu().to(torch.int16)
+         - cpu.gray_frames(0, 24).to(torch.int16)).abs()
+    assert int(d.max()) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app", ["final", "vp_detect", "classify"])
+def test_vp_app_on_card(cuda_device, app, tmp_path):
+    """A VP app's main on the card (--synthetic 1280x720, 17 frames): one
+    pyramid launch per tracked frame, no plain call, no other kernel, and
+    the rows of the same run with the plain pyramid."""
+    import importlib
+
+    module = importlib.import_module(f"lk_tpu_torch.apps.{app}")
+    argv = ["--synthetic", "--frames", "17", "--chunk", "8", "--quiet",
+            "--out-dir", str(tmp_path)]
+    _reset_all()
+    kern = module.main(argv)
+    assert (blur.kernel_launches, blur.plain_calls) == (16, 0)
+    assert finish.kernel_launches == sparse.kernel_launches == 0
+    assert (tmp_path / "vps_synthetic.csv").is_file()
+    with _PlainTracker():
+        plain = module.main(argv)
+    assert kern.frames_done == 16 and len(kern.csv_rows) > 0
+    assert kern.csv_rows == plain.csv_rows
+    assert kern.vp_per_frame == plain.vp_per_frame
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app", ["masking", "roadlines"])
+def test_tracker_app_on_card(cuda_device, app):
+    """A tracker app's compute part on the card: one pyramid launch per
+    tracked frame, segments equal to the plain-pyramid run; roadlines'
+    Hough result on the card within 1e-4 rad / 1e-2 px of the same call
+    on the CPU."""
+    import importlib
+
+    from lk_tpu_torch.apps import _common
+    from lk_tpu_torch.geometry.hough import hough_road_lines
+
+    module = importlib.import_module(f"lk_tpu_torch.apps.{app}")
+    parser = _common.build_parser("")
+    if app == "roadlines":
+        module.add_args(parser)
+    args = parser.parse_args(["--synthetic", "--frames", "9", "--chunk",
+                              "4"])
+    _reset_all()
+    kern = module.compute(args)
+    assert (blur.kernel_launches, blur.plain_calls) == (8, 0)
+    with _PlainTracker():
+        plain = module.compute(args)
+    if app == "masking":
+        assert len(kern.segments) > 0 and kern.segments == plain.segments
+        return
+    assert len(kern.lengths) > 0 and kern.lengths == plain.lengths
+    assert np.array_equal(kern.start, plain.start)
+    moving = torch.from_numpy((kern.start != kern.stop).any(axis=1))
+    cpu = hough_road_lines(torch.from_numpy(kern.start),
+                           torch.from_numpy(kern.stop), moving,
+                           (kern.width, kern.height), k=args.hough_k)
+    np.testing.assert_allclose(kern.hough.theta.cpu().numpy(),
+                               cpu.theta.numpy(), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(kern.hough.rho.cpu().numpy(),
+                               cpu.rho.numpy(), rtol=0, atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_serve_on_card(cuda_device):
+    """serve's run_server on the card (4 streams, 17 frames, chunk 8, both
+    passes counted): the finish once per chunk + the init frame, the
+    gather 3 times and the pyramid once per processed frame plus once per
+    chunk, no plain call; rows within 1e-4 px of the plain versions."""
+    from lk_tpu_torch.apps import serve
+
+    args = serve.build_parser().parse_args(
+        ["--streams", "4", "--frames", "17", "--chunk", "8", "--quiet"])
+    _reset_all()
+    run = serve.run_server(args)
+    chunks, frames = 2, 16
+    assert finish.kernel_launches == 2 * (chunks + 1)
+    assert sparse.kernel_launches == 2 * 3 * frames
+    assert blur.kernel_launches == 2 * (frames + chunks)
+    assert finish.plain_calls + sparse.plain_calls + blur.plain_calls == 0
+    with _PlainTracker():
+        ref = serve.run_server(args)
+    for a, b in zip(run.server.pipes, ref.server.pipes):
+        x = np.array(a.csv_rows, np.float64).reshape(-1, 2)
+        y = np.array(b.csv_rows, np.float64).reshape(-1, 2)
+        assert x.shape == y.shape and len(x) > 0
+        assert float(np.abs(x - y).max(initial=0.0)) <= 1e-4

@@ -1,5 +1,6 @@
-"""lk_tpu_torch as a package: nothing of JAX, lk_tpu or OpenCV, its own
-configs equal to lk_tpu's, the unported branch refuses and the
+"""lk_tpu_torch as a package: nothing of JAX, lk_tpu, OpenCV or
+matplotlib at import, its own configs and presets equal to lk_tpu's, the
+apps' dispatcher, the unported branch refuses and the
 single-stream step runs, the entry point holds lk_tpu's flagship program,
 and chip_smoke.py refuses to run without a GPU."""
 
@@ -43,16 +44,27 @@ PORT_MODULES = (
     "lk_tpu_torch.geometry.vanishing", "lk_tpu_torch.pipeline.runner",
     "lk_tpu_torch.pipeline.state", "lk_tpu_torch.pipeline.step",
     "lk_tpu_torch.pipeline.tracker", "lk_tpu_torch.utils.checkpoint",
-    "lk_tpu_torch.io.prefetch", "lk_tpu_torch.io.sink")
+    "lk_tpu_torch.io.prefetch", "lk_tpu_torch.io.sink",
+    "lk_tpu_torch.io.video", "lk_tpu_torch.io.raw", "lk_tpu_torch.io.native",
+    "lk_tpu_torch.geometry.hough", "lk_tpu_torch.ops.homography",
+    "lk_tpu_torch.utils.profiling", "lk_tpu_torch.viz",
+    "lk_tpu_torch.apps", "lk_tpu_torch.apps.__main__",
+    "lk_tpu_torch.apps._common", "lk_tpu_torch.apps.final",
+    "lk_tpu_torch.apps.vp_detect", "lk_tpu_torch.apps.classify",
+    "lk_tpu_torch.apps.masking", "lk_tpu_torch.apps.roadlines",
+    "lk_tpu_torch.apps.display", "lk_tpu_torch.apps.serve")
 
 
 def test_import_pulls_no_jax():
-    """In a fresh process, importing every module of the port loads no
-    jax, no cv2 and no module of lk_tpu (not even its config)."""
+    """In a fresh process, importing every module of the port (the apps
+    too) loads no jax, no cv2, no matplotlib and no module of lk_tpu (not
+    even its config): presentation imports OpenCV and matplotlib only
+    when it draws."""
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
-            "bad = [m for m in sys.modules if m in ('jax', 'cv2', 'lk_tpu') "
-            "or m.startswith(('jax.', 'cv2.', 'lk_tpu.'))]\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'cv2', 'lk_tpu', "
+            "'matplotlib') or m.startswith(('jax.', 'cv2.', 'lk_tpu.', "
+            "'matplotlib.'))]\n"
             "print(bad); sys.exit(1 if bad else 0)")
     proc = _run(["-c", code], REPO)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -94,6 +106,36 @@ def test_presets_parity():
     """lk_tpu_torch.models.PRESETS holds lk_tpu's three VP presets."""
     assert {k: dataclasses.asdict(v) for k, v in PRESETS.items()} == {
         k: dataclasses.asdict(v) for k, v in J_PRESETS.items()}
+
+
+@pytest.mark.parametrize("name", ["MASKING", "ROADLINES"])
+def test_tracker_presets_parity(name):
+    """MASKING and ROADLINES equal lk_tpu's, field for field (the configs
+    inside as the port's own classes)."""
+    import lk_tpu.models as jm
+    import lk_tpu_torch.models as tm
+
+    j, t = getattr(jm, name), getattr(tm, name)
+    assert list(t) == list(j)
+    for k, v in j.items():
+        if dataclasses.is_dataclass(v):
+            assert type(t[k]) is getattr(tc, type(v).__name__), k
+            assert dataclasses.asdict(t[k]) == dataclasses.asdict(v), k
+        else:
+            assert t[k] == v, k
+
+
+def test_apps_dispatch():
+    """python -m lk_tpu_torch.apps dispatches lk_tpu's six apps; without
+    one it prints the usage and exits 2."""
+    from lk_tpu.apps.__main__ import APPS as J_APPS
+    from lk_tpu_torch.apps.__main__ import APPS
+
+    assert APPS == J_APPS
+    proc = _run(["-m", "lk_tpu_torch.apps"], REPO)
+    assert proc.returncode == 2 and "|".join(APPS) in proc.stdout
+    proc = _run(["-m", "lk_tpu_torch.apps", "serve", "--help"], REPO)
+    assert proc.returncode == 0 and "--async-drains" in proc.stdout
 
 
 def _pair(h=64, w=128):
@@ -207,3 +249,21 @@ def test_build_key_tracks_headers(tmp_path, monkeypatch):
     with open(pkg / _build.HEADERS[0], "a") as f:
         f.write("// edited\n")
     assert _build.build_dir() != before
+
+
+@pytest.mark.parametrize("app", ["final", "vp_detect", "classify", "masking",
+                                 "roadlines", "serve"])
+def test_app_flags_match_lk_tpu(app, capsys):
+    """Each app's command line has lk_tpu's flags, no more, no fewer (from
+    argparse's usage line)."""
+    import importlib
+    import re
+
+    flags = []
+    for pkg in ("lk_tpu", "lk_tpu_torch"):
+        module = importlib.import_module(f"{pkg}.apps.{app}")
+        with pytest.raises(SystemExit):
+            module.main(["--help"])
+        usage = capsys.readouterr().out.split("\n\n")[0]
+        flags.append(sorted(re.findall(r"\[(-[-\w]+)", usage)))
+    assert flags[0] == flags[1] and len(flags[0]) > 3
