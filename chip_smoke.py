@@ -575,6 +575,36 @@ def compare_levels(stacks, plan, cfg, timing_reps):
     return per_variant, rows
 
 
+def spill_check(frames0, card):
+    """Phase 2, the right-halo refresh: a tiled level whose tile width is
+    not a multiple of 128 (272x480 on 136x480 tiles, 2 iterations) reads
+    its second iteration's right halo from the current flow
+    (warp_kernels.right_spill: 8 columns); kernel and plain version equal
+    bit for bit, and differ from the same launches with no refresh."""
+    import torch
+    from lk_tpu_torch.flow import lk_kernels as lk
+    from lk_tpu_torch.flow import warp_kernels as wk
+
+    st = frames0[:2, :272, :480].contiguous()
+    rng = np.random.default_rng(2)
+    flow = torch.from_numpy(((rng.random((1, 2, 272, 480)) - 0.5) * 2.0)
+                            .astype(np.float32)).to(st.device)
+    kw = dict(tile_h=136, tile_w=480, max_disp=8, local=5, n_iters=2)
+    fk, _, _ = lk.fused_lk_level(st[:1], st[1:], flow, **kw)
+    fp, _, _ = lk.fused_lk_level_reference(st[:1], st[1:], flow, **kw)
+    with patched(wk, "right_spill", lambda tile_w: 0):
+        f0, _, _ = lk.fused_lk_level(st[:1], st[1:], flow, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(fk, fp), "the spill launch differs from its plain "
+          "version")
+    moved = float((fk - f0).abs().max())
+    check(moved > 0.0, "the right-halo refresh changed nothing")
+    print(f"[kernel] fused_lk_level tiled 272x480 on 136x480 tiles, 2 "
+          f"iterations, right-halo refresh of {wk.right_spill(480)} columns:"
+          f" bit-equal to the plain version; max |dflow| against no refresh "
+          f"{moved:.3g} px  [{card}]")
+
+
 def level_anatomy(stacks, plan, cfg, card, reps=20):
     """Phase 5 (--profile): the fused kernel at 1080p L0 (K pairs) against
     two copies of csrc/fused_lk_level.cu built for this measurement only
@@ -1203,23 +1233,25 @@ def perpair_timing(frames0, cfg, card, profile):
 # serving: scenes, main path, kernels vs plain, timing, profile
 # --------------------------------------------------------------------------
 
-def road_staging(dev, n_streams=SB, n_frames=SF, h=SH, w=SW, zoom=S_ZOOM):
+def road_staging(dev, n_streams=SB, n_frames=SF, h=SH, w=SW, zoom=S_ZOOM,
+                 first=0):
     """(n_frames, n_streams, h, w) u8 staging of forward-driving scenes:
-    stream s is the package's ``lk_tpu_torch.io.video.SyntheticRoadStream``
-    (seed s, apps/serve.py's VP (0.45 + 0.01 (s % 5)) w, 0.45 h), gray,
-    rendered on the card; and the planted VPs."""
+    stream s (from ``first``) is the package's
+    ``lk_tpu_torch.io.video.SyntheticRoadStream`` (seed s, apps/serve.py's
+    VP (0.45 + 0.01 (s % 5)) w, 0.45 h), gray, rendered on the card; and
+    the planted VPs."""
     import torch
     from lk_tpu_torch.io.video import SyntheticRoadStream
 
     out = torch.empty((n_frames, n_streams, h, w), dtype=torch.uint8,
                       device=dev)
     vps = []
-    for s in range(n_streams):
+    for s in range(first, first + n_streams):
         vp = (w * (0.45 + 0.01 * (s % 5)), h * 0.45)
         scene = SyntheticRoadStream(width=w, height=h, vp=vp, zoom=zoom,
                                     seed=s, n_frames=n_frames, color=False,
                                     device=dev)
-        out[:, s] = scene.gray_frames(0, n_frames)
+        out[:, s - first] = scene.gray_frames(0, n_frames)
         vps.append(vp)
     return out, np.array(vps)
 
@@ -1232,13 +1264,18 @@ def serving_config():
     return dataclasses.replace(PRESETS["final"], out_cap=S_CAP)
 
 
-def serve_pass(staging, n_streams=SB):
+def serve_pass(staging, n_streams=SB, mesh=None):
     """One serving pass: a fresh MultiStreamPipeline fed the whole staging
-    array in chunks (the first one chunk + the init frame), then drained."""
+    array in chunks (the first one chunk + the init frame), then drained.
+    With a ``mesh`` the pipeline's streams shard over its "streams" axis
+    and ``staging`` holds this rank's streams."""
     from lk_tpu_torch.pipeline.runner import MultiStreamPipeline
 
+    # ``mesh`` only when given: scripts/torch_turns.py runs this pass on
+    # trees whose pipeline predates it
     ms = MultiStreamPipeline(serving_config(), src_size=SRC,
-                             n_streams=n_streams, chunk=S_CHUNK)
+                             n_streams=n_streams, chunk=S_CHUNK,
+                             **({} if mesh is None else {"mesh": mesh}))
     check((ms.height, ms.width) == (SH, SW) == tuple(staging.shape[2:]),
           f"processing size {ms.height}x{ms.width}, staging "
           f"{tuple(staging.shape[2:])}")
@@ -1931,11 +1968,403 @@ def serve_app_phase(card):
     return launches, wall
 
 
+# --------------------------------------------------------------------------
+# phases 21-24: the parallel layer (lk_tpu_torch.parallel) on the one card
+# --------------------------------------------------------------------------
+
+P_DISP = 8                 # the spatial level's displacement bound
+RANK_TIMEOUT = 300         # s for each rank process of phase 24
+P_WORLD = 2                # ranks sharing the card in phase 24 (gloo)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spatial_pair(dev):
+    """The parallel phases' 1080p pair: a textured canvas moved (3.7, -2.2)
+    px, the same numbers in every process (seed 21)."""
+    import torch
+
+    frames = affine_video(np.random.default_rng(21), H, W, 2,
+                          translation(3.7, -2.2))
+    return torch.from_numpy(frames).to(dev)
+
+
+def spatial_modes():
+    """(name, exchange_per_iter, DenseLKConfig) of the spatial phases."""
+    from lk_tpu_torch.config import DenseLKConfig
+
+    return [(f"{'per-iteration' if per else 'single'} exchange, "
+             f"{'fused kernel' if fused else 'XLA level'}", per,
+             DenseLKConfig(use_pallas_fused=fused))
+            for fused in (False, True) for per in (False, True)]
+
+
+def rank_programs(prev, nxt, flow, shards, cfg, dcfg, per_iter):
+    """The sharded spatial level's rank programs run one after the other in
+    this process: each rank's row block padded as halo_exchange pads it
+    (neighbour rows, the frame's edge row replicated beyond it), the level
+    run on it, the block's own rows kept; per iteration, the flow
+    re-padded each round with the eps mask carried across rounds (XLA
+    level) as lk_tpu/parallel/spatial.py does."""
+    import dataclasses
+
+    import torch
+    from lk_tpu_torch.flow import dense
+    from lk_tpu_torch.parallel.spatial import (iteration_halo,
+                                               single_exchange_halo)
+
+    n = prev.shape[0]
+    per = n // shards
+
+    def level(f, halo, d):
+        out = []
+        for i in range(shards):
+            rows = torch.arange(i * per - halo, (i + 1) * per + halo,
+                                device=prev.device).clamp(0, n - 1)
+            out.append(dense.dense_lk_level(
+                prev[rows], nxt[rows], f[rows], cfg, d,
+                max_disp=P_DISP).flow[halo:halo + per])
+        return torch.cat(out)
+
+    if not per_iter:
+        return level(flow, single_exchange_halo(cfg, dcfg, P_DISP), dcfg)
+    one = dataclasses.replace(dcfg, outer_iters=1, iter_schedule=())
+    f = flow
+    active = torch.ones(f.shape[:2], dtype=torch.bool, device=f.device)
+    for _ in range(dcfg.outer_iters):
+        f_new = level(f, iteration_halo(cfg, P_DISP), one)
+        if dcfg.use_pallas_fused:
+            f = f_new
+            continue
+        d = f_new - f
+        f = torch.where(active[..., None], f_new, f)
+        active = active & (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
+                           > cfg.eps * cfg.eps)
+    return f
+
+
+def sink_arrays(p) -> dict:
+    """One sink's outputs as arrays: csv rows, the shown VP per frame (NaN
+    where none), cross points, accepted segments."""
+    nan = (float("nan"),) * 2
+    return {
+        "csv": np.array(p.csv_rows, np.float64).reshape(-1, 2),
+        "shown": np.array([v if v is not None else nan
+                           for v in p.vp_per_frame], np.float64),
+        "cps": np.array(p.cross_points, np.float64).reshape(-1, 2),
+        "segs": np.array([np.concatenate([s["start"], s["stop"]])
+                          for s in p.segments], np.float64).reshape(-1, 4),
+    }
+
+
+def same_sinks(a: dict, b: dict) -> bool:
+    return all(np.array_equal(a[k], b[k], equal_nan=True) for k in a)
+
+
+def sharded_serving_phase(staging, ref_rows, unsharded_rates, card):
+    """Phase 21: MultiStreamPipeline(mesh=...) at world size 1 under NCCL,
+    the cell of phase 13 (64 streams x 64 frames, 860x483, preset final,
+    chunk 16): counted (the finish, the gather and the pyramid, as phase
+    11), every stream's rows equal (np.array_equal) to phase 11's
+    unsharded run, then a timed pass beside phase 13's."""
+    import torch
+    from lk_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh((1,), ("streams",))
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    ms = serve_pass(staging, mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = kernel_counts()
+    frames = SF - 1
+    check(plain == 0, f"plain versions ran {plain}x")
+    check(launches == {"pyr_down": frames + n_chunks(),
+                       "finish": n_chunks() + 1,
+                       "window_gather": 3 * frames},
+          f"sharded serving launches {launches}")
+    check(ms.streams == slice(0, SB) and len(ms.pipes) == SB,
+          f"world 1 holds streams {ms.streams}")
+    equal = all(same_sinks(sink_arrays(p), r)
+                for p, r in zip(ms.pipes, ref_rows))
+    check(equal, "sharded serving rows differ from the unsharded run")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    serve_pass(staging, mesh=mesh)
+    end.record()
+    torch.cuda.synchronize()
+    ev = start.elapsed_time(end)
+    rate = SB * frames / ev * 1e3
+    print(f"[parallel] 21 world 1 (NCCL) MultiStreamPipeline(mesh) B={SB} "
+          f"{SW}x{SH} chunk {S_CHUNK}: launches {launches}, plain calls 0, "
+          f"rows of all {SB} streams == the unsharded run (np.array_equal); "
+          f"timed pass {ev:.1f} ms = {rate:.1f} stream-frames/s vs phase "
+          f"13's unsharded {max(unsharded_rates):.1f} (best of "
+          f"{len(unsharded_rates)}); counted pass wall {wall:.1f} s  "
+          f"[{card}]")
+    return launches, rate
+
+
+def spatial_phase(prev, nxt, card):
+    """Phase 22: spatial_dense_lk_level at world size 1 under NCCL at
+    1080p, both exchange modes, XLA level and fused kernel: equal
+    (torch.equal) to the rank program run in one process; the single
+    exchange's XLA level equal to the unsharded level outside the
+    replicated-edge belt; device time beside the unsharded level's."""
+    import torch
+    from lk_tpu_torch.config import LKConfig
+    from lk_tpu_torch.flow import dense
+    from lk_tpu_torch.parallel import make_mesh, spatial_dense_lk_level
+    from lk_tpu_torch.parallel.spatial import single_exchange_halo
+
+    cfg = LKConfig()
+    mesh = make_mesh((1, 1))
+    zero = torch.zeros((H, W, 2), dtype=torch.float32, device=prev.device)
+    launches = {}
+    for name, per, dcfg in spatial_modes():
+        fn = spatial_dense_lk_level(mesh, cfg, dcfg, max_disp=P_DISP,
+                                    exchange_per_iter=per)
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        got = fn(prev, nxt, zero)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, plain = dense_counts()
+        check(plain == 0, f"{name}: plain versions ran {plain}x")
+        fused = {k: v for k, v in counts.items() if v}
+        if dcfg.use_pallas_fused:
+            check(fused == {"tiled": dcfg.outer_iters},
+                  f"{name}: launches {fused}")
+            launches[f"spatial, {name}"] = fused
+        check(torch.equal(got, rank_programs(prev, nxt, zero, 1, cfg, dcfg,
+                                              per)),
+              f"{name}: differs from its rank program")
+        whole = dense.dense_lk_level(prev, nxt, zero, cfg, dcfg,
+                                     max_disp=P_DISP).flow
+        # the replicated edge rows reach the halo, then win//2 rows per
+        # further iteration
+        belt = single_exchange_halo(cfg, dcfg, P_DISP)
+        dev_in = float((got - whole)[belt:-belt].abs().max())
+        if not per and not dcfg.use_pallas_fused:
+            check(dev_in == 0.0, f"{name}: interior differs from the "
+                  f"unsharded level by {dev_in} px")
+        s_ms = cuda_ms(lambda: fn(prev, nxt, zero), 3)
+        u_ms = cuda_ms(lambda: dense.dense_lk_level(
+            prev, nxt, zero, cfg, dcfg, max_disp=P_DISP), 3)
+        print(f"[parallel] 22 world 1 (NCCL) spatial_dense_lk_level "
+              f"{H}x{W}, {name}, {dcfg.outer_iters} iterations, disp "
+              f"{P_DISP}: == its rank program (torch.equal); max |dflow| vs "
+              f"the unsharded level outside the {belt}-row edge belt "
+              f"{dev_in:.3g} px; launches {fused or 'none'}; "
+              f"{s_ms:.3f} ms vs unsharded {u_ms:.3f} ms (CUDA events); "
+              f"first call wall {wall:.2f} s  [{card}]")
+    return launches
+
+
+def pyramidal_phase(prev, nxt, card):
+    """Phase 23: sharded_dense_pyramidal_lk at world size 1 under NCCL at
+    1080p (default config: the XLA level, the pyramid kernel): equal
+    (torch.equal) at every pixel to the unsharded dense_pyramidal_lk."""
+    import torch
+    from lk_tpu_torch.flow import dense
+    from lk_tpu_torch.parallel import make_mesh, sharded_dense_pyramidal_lk
+
+    run = sharded_dense_pyramidal_lk(make_mesh((1, 1)))
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    got = run(prev, nxt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, plain = dense_counts()
+    check(plain == 0, f"plain versions ran {plain}x")
+    launches = {k: v for k, v in counts.items() if v}
+    check(set(launches) == {"pyr_down"}, f"launches {launches}")
+    ref = dense.dense_pyramidal_lk(prev, nxt).flow
+    check(torch.equal(got, ref), "sharded pyramidal flow differs from the "
+          "unsharded solve")
+    s_ms = cuda_ms(lambda: run(prev, nxt), 3)
+    u_ms = cuda_ms(lambda: dense.dense_pyramidal_lk(prev, nxt), 3)
+    print(f"[parallel] 23 world 1 (NCCL) sharded_dense_pyramidal_lk {H}x{W}: "
+          f"== dense_pyramidal_lk at every pixel (torch.equal); launches "
+          f"{launches}; {s_ms:.3f} ms vs unsharded {u_ms:.3f} ms (CUDA "
+          f"events); first call wall {wall:.2f} s  [{card}]")
+    return launches
+
+
+def rank_command(rank: int, port: int, out: str) -> list:
+    """The command line of one rank of phase 24: this script in rank mode."""
+    return [sys.executable, os.path.abspath(__file__), "--rank", str(rank),
+            "--world", str(P_WORLD), "--port", str(port), "--out", out]
+
+
+def world2_phase(prev, nxt, ref_rows, card):
+    """Phase 24: two ranks on the one card under gloo (NCCL takes one rank
+    per GPU), halos staged through host memory: the spatial level under
+    use_pallas_fused at 1080p, both modes, equal (np.array_equal) to the
+    two rank programs run here, each mode launching the tiled fused level
+    once per iteration on each rank; sharded serving at 64 streams, 32 per rank, each
+    stream's rows equal to phase 11's unsharded run."""
+    import tempfile
+
+    import torch
+    from lk_tpu_torch.config import DenseLKConfig, LKConfig
+
+    cfg = LKConfig()
+    port = free_port()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        procs = [subprocess.Popen(
+            rank_command(r, port, out), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(P_WORLD)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=RANK_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            check(p.returncode == 0,
+                  f"world-2 rank {r} failed (rc {p.returncode}):\n"
+                  f"{log[-3000:]}")
+        ranks = [dict(np.load(os.path.join(out, f"rank{r}.npz")))
+                 for r in range(P_WORLD)]
+        info = [json.loads(open(os.path.join(out, f"rank{r}.json")).read())
+                for r in range(P_WORLD)]
+    wall = time.perf_counter() - t0
+    zero = torch.zeros((H, W, 2), dtype=torch.float32, device=prev.device)
+    for name, per, dcfg in spatial_modes():
+        if not dcfg.use_pallas_fused:
+            continue
+        key = f"spatial_{int(per)}"
+        got = np.concatenate([r[key] for r in ranks])
+        want = rank_programs(prev, nxt, zero, P_WORLD, cfg, dcfg,
+                             per).cpu().numpy()
+        err = float(np.abs(got - want).max())
+        check(np.array_equal(got, want),
+              f"world 2, {name}: max |dflow| {err} px vs its rank programs")
+        for r, i in enumerate(info):
+            check(i["spatial_launches"][key] == {"tiled": dcfg.outer_iters},
+                  f"world 2, {name}: rank {r} launches "
+                  f"{i['spatial_launches'][key]}")
+        print(f"[parallel] 24 world 2 (gloo, halos through the host) "
+              f"spatial_dense_lk_level {H}x{W}, {name}: == the two rank "
+              f"programs run here (np.array_equal); launches per rank "
+              f"{info[0]['spatial_launches'][key]}; rank walls "
+              f"{[i['walls'][key] for i in info]} s  [{card}]")
+    streams = []
+    for r in range(P_WORLD):
+        lo, hi = info[r]["streams"]
+        check((lo, hi) == (r * SB // P_WORLD, (r + 1) * SB // P_WORLD),
+              f"rank {r} holds streams {lo}:{hi}")
+        for b in range(lo, hi):
+            streams.append({k: ranks[r][f"s{b}_{k}"] for k in ref_rows[b]})
+    check(len(streams) == SB, f"{len(streams)} streams came back")
+    check(all(same_sinks(a, b) for a, b in zip(streams, ref_rows)),
+          "world-2 serving rows differ from the unsharded run")
+    frames = SF - 1
+    for r, i in enumerate(info):
+        c = i["serve_launches"]
+        check(c == {"pyr_down": frames + n_chunks(), "finish": n_chunks() + 1,
+                    "window_gather": 3 * frames},
+              f"rank {r} serving launches {c}")
+        check(i["plain"] == 0, f"rank {r}: plain versions ran")
+    rates = [SB // P_WORLD * frames / i["walls"]["serving"] for i in info]
+    print(f"[parallel] 24 world 2 serving B={SB} ({SB // P_WORLD} per rank) "
+          f"{SW}x{SH}: rows of all {SB} streams == the unsharded run "
+          f"(np.array_equal); launches per rank {info[0]['serve_launches']}; "
+          f"per-rank pass walls {[i['walls']['serving'] for i in info]} s "
+          f"({[round(x, 1) for x in rates]} stream-frames/s each, the two "
+          f"ranks sharing the card); phase wall {wall:.1f} s  [{card}]")
+    return [{k: v for k, v in i.items() if k.endswith("launches")}
+            for i in info]
+
+
+def parallel_rank(argv) -> int:
+    """One rank of phase 24 (``--rank r --world n --port p --out dir``):
+    gloo on cuda:0; writes its flow rows and sink arrays to
+    dir/rank<r>.npz and its launches and walls to dir/rank<r>.json."""
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    for a in ("--rank", "--world", "--port"):
+        ap.add_argument(a, type=int, required=True)
+    ap.add_argument("--out", required=True)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+    import torch.distributed as dist
+    from lk_tpu_torch.config import LKConfig
+    from lk_tpu_torch.parallel import make_mesh, spatial_dense_lk_level
+    from lk_tpu_torch.parallel.mesh import local_rows
+    from lk_tpu_torch.parallel.multihost import init_multihost
+
+    init_multihost(f"localhost:{args.port}", args.world, args.rank,
+                   backend="gloo")
+    dev = device()
+    res, walls, spatial_launches = {}, {}, {}
+    try:
+        prev, nxt = spatial_pair(dev)
+        rows = make_mesh((1, args.world))
+        mine = local_rows(rows, H, "spatial")
+        zero = torch.zeros((mine.stop - mine.start, W, 2),
+                           dtype=torch.float32, device=dev)
+        for _, per, dcfg in spatial_modes():
+            if not dcfg.use_pallas_fused:
+                continue
+            fn = spatial_dense_lk_level(rows, LKConfig(), dcfg,
+                                        max_disp=P_DISP,
+                                        exchange_per_iter=per)
+            key = f"spatial_{int(per)}"
+            reset_counters()
+            got, sec = timed_call(fn, prev[mine], nxt[mine], zero)
+            counts, _ = dense_counts()
+            spatial_launches[key] = {k: v for k, v in counts.items() if v}
+            res[key] = got.cpu().numpy()
+            walls[key] = round(sec, 3)
+        streams = make_mesh((args.world,), ("streams",))
+        own = local_rows(streams, SB, "streams")
+        staging, _ = road_staging(dev, n_streams=own.stop - own.start,
+                                  first=own.start)
+        serve_pass(staging, mesh=streams)            # warm-up
+        reset_counters()
+        ms, sec = timed_call(serve_pass, staging, mesh=streams)
+        walls["serving"] = round(sec, 3)
+        serve_launches, plain = kernel_counts()
+        for b, p in zip(range(own.start, own.stop), ms.pipes):
+            for k, v in sink_arrays(p).items():
+                res[f"s{b}_{k}"] = v
+        np.savez(os.path.join(args.out, f"rank{args.rank}.npz"), **res)
+        with open(os.path.join(args.out, f"rank{args.rank}.json"), "w") as fh:
+            json.dump({"streams": [ms.streams.start, ms.streams.stop],
+                       "walls": walls, "plain": plain,
+                       "serve_launches": serve_launches,
+                       "spatial_launches": spatial_launches},
+                      fh)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     import torch
 
     t_start = time.perf_counter()
     profile = "--profile" in sys.argv[1:]
+    if "--rank" in sys.argv[1:]:             # a rank of phase 24
+        return parallel_rank(sys.argv[1:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "run needs an NVIDIA GPU", file=sys.stderr)
@@ -2012,6 +2441,7 @@ def main() -> int:
               f"  [{card}]")
     print(f"[kernel] chunk (K={K}) output == single-pair output: "
           "bit-identical")
+    spill_check(frames0, card)
 
     # --- 3. main path --------------------------------------------------------
     launches = None
@@ -2105,7 +2535,9 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s (set-up)")
 
     # --- 11. serving main path -----------------------------------------------
-    s_launches, _ = serving_main_path(staging, vps, card)
+    s_launches, s_ms = serving_main_path(staging, vps, card)
+    ref_rows = [sink_arrays(p) for p in s_ms.pipes]
+    del s_ms
 
     # --- 12. serving kernels vs plain at serving shapes ----------------------
     s_kernels = serving_kernels(staging, card)
@@ -2142,6 +2574,36 @@ def main() -> int:
     print(f"[apps] phases 18-20 wall {w18 + w19 + w20:.1f} s "
           f"({w18:.1f} + {w19:.1f} + {w20:.1f})")
 
+    # --- 21-24. the parallel layer -------------------------------------------
+    from lk_tpu_torch.parallel.multihost import init_multihost
+
+    t_par = time.perf_counter()
+    init_multihost(f"localhost:{free_port()}", 1, 0)       # NCCL, world 1
+    walls = {}
+    try:
+        t0 = time.perf_counter()
+        staging, _ = road_staging(dev)
+        par_launches = {}
+        par_launches["21"], _ = sharded_serving_phase(staging, ref_rows,
+                                                      rates, card)
+        del staging
+        walls["21"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        prev, nxt = spatial_pair(dev)
+        spatial_launches = spatial_phase(prev, nxt, card)
+        walls["22"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        par_launches["23"] = pyramidal_phase(prev, nxt, card)
+        walls["23"] = time.perf_counter() - t0
+    finally:
+        torch.distributed.destroy_process_group()
+    t0 = time.perf_counter()
+    world2 = world2_phase(prev, nxt, ref_rows, card)
+    walls["24"] = time.perf_counter() - t0
+    del prev, nxt
+    print(f"[parallel] phases 21-24 wall {time.perf_counter() - t_par:.1f} s "
+          f"({', '.join(f'{k}: {v:.1f}' for k, v in walls.items())})")
+
     report = {"kernels": [
         {"name": f"fused_lk_level[{v}]", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[v], "launches": launches[v],
@@ -2153,17 +2615,38 @@ def main() -> int:
                          key=lambda kv: kv[1])[0],
          "library_ms": None}
         for v in REPLACES]}
+    # launches on the parallel phases' sharded paths
+    for entry in report["kernels"]:
+        if entry["name"] == "fused_lk_level[tiled]":
+            entry["parallel_launches"] = dict(
+                {f"22 world 1, {m}": c["tiled"]
+                 for m, c in spatial_launches.items()},
+                **{f"24 world 2 rank {r}, {m}": w["spatial_launches"][
+                    f"spatial_{int(per)}"]["tiled"]
+                   for r, w in enumerate(world2)
+                   for m, per, dcfg in spatial_modes()
+                   if dcfg.use_pallas_fused})
+
+    def par(name):
+        out = {f"{ph} world 1": c[name] for ph, c in par_launches.items()
+               if name in c}
+        out.update({f"24 world 2 rank {r}": w["serve_launches"][name]
+                    for r, w in enumerate(world2)})
+        return out
+
     for k in s_kernels:
         report["kernels"].append(dict(
             k, launches=s_launches[k["name"]],
-            serve_app_launches=serve_launches[k["name"]]))
+            serve_app_launches=serve_launches[k["name"]],
+            parallel_launches=par(k["name"])))
     # launches: the dense video's; the single-stream run's and the apps'
     # beside it
     report["kernels"].append(dict(
         pyr_kernel, launches=launches["pyr_down"],
         single_stream_launches=v_launches["pyr_down"],
         app_launches=dict(app_launches, **t_launches,
-                          serve=serve_launches["pyr_down"])))
+                          serve=serve_launches["pyr_down"]),
+        parallel_launches=par("pyr_down")))
     path_of = {"local_warp": "B", "fused_lk_level_precomputed": "B"}
     for k in p_kernels:
         report["kernels"].append(dict(

@@ -21,7 +21,11 @@
 // Scharr of edge-replicated prev, 15x15 box sums, min-eig gate, 2x2 solve.
 // Flow on the halo: the current flow inside the level, the edge-replicated
 // initial flow outside it; on coarse-in levels upsample2_linear's taps (x2)
-// of the edge-clamped coarse planes.  All borders are read by clamped address.
+// of the edge-clamped coarse planes.  The tiled TPU kernel writes 128-aligned
+// widths, so from its second iteration on the first `spill` columns right of
+// the level (in its rows) carry the current flow's edge column: the wrapper
+// passes spill = warp_kernels.right_spill(tile_w) there, 0 elsewhere.  All
+// borders are read by clamped address.
 //
 // Rounding: built with --fmad=false (no FMA contraction), so every product
 // rounds before it is added, as in the plain version's eager elementwise ops;
@@ -133,6 +137,7 @@ struct Params {
   int th, tw;              // reference tile
   int nbx, nby;            // blocks per tile along x / y
   int win_k;
+  int spill;               // columns right of the level read from `cur`
   float max_disp, eig_thr;
 };
 
@@ -361,9 +366,8 @@ fused_lk_level_kernel(Params p) {
       const int r = i / FW, c = i - r * FW;
       const int y = gy0 + r;
       const int x = X0 + min(cb + c, etw - 1);   // edge column of the tile ext
-      const bool in = y >= 0 && y < H && x >= 0 && x < W;
-      const size_t at = in ? (size_t)y * W + x
-                           : (size_t)clampi(y, 0, H - 1) * W + clampi(x, 0, W - 1);
+      const bool in = y >= 0 && y < H && x >= 0 && x < W + p.spill;
+      const size_t at = (size_t)clampi(y, 0, H - 1) * W + clampi(x, 0, W - 1);
       const float* src = in ? cur : ini;
       cp_async4(sFY + i, src + plane + at);
       if (c < EW) cp_async4(sFX + r * EW + c, src + at);
@@ -597,17 +601,19 @@ int pick_shape(const Params& p, int K) {
 extern "C" {
 
 // Launches one iteration on `stream`; returns cudaGetLastError() (0 = ok).
-// shape: the block shape (0: 34x32, 1: 17x32), or -1 to let the
+// spill: the right-halo columns read from `cur` (0..HALO; 0 on coarse-in
+// levels).  shape: the block shape (0: 34x32, 1: 17x32), or -1 to let the
 // launcher choose from the level's size.  Every shape gives the same bits.
 int lk_fused_level_launch(const void* prev, long long prev_stride,
                           const void* next, long long next_stride,
                           const void* cur, const void* init, void* out,
                           void* min_eig, void* valid, int K, int H, int W,
                           int CH, int CW, int tile_h, int tile_w, int coarse,
-                          int local, int win_k, float max_disp, float eig_thr,
-                          int shape, void* stream) {
+                          int local, int win_k, int spill, float max_disp,
+                          float eig_thr, int shape, void* stream) {
   if (local < 0 || local > MAX_LOCAL || win_k < 1 || win_k > MAX_WIN ||
       K < 1 || tile_h < 1 || tile_w < 1 || H % tile_h || W % tile_w ||
+      spill < 0 || spill > HALO || (coarse && spill) ||
       shape < -1 || shape >= N_SHAPES ||
       (!coarse && cur == nullptr) || ((min_eig == nullptr) != (valid == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -628,6 +634,7 @@ int lk_fused_level_launch(const void* prev, long long prev_stride,
   p.th = tile_h;
   p.tw = tile_w;
   p.win_k = win_k;
+  p.spill = spill;
   p.max_disp = max_disp;
   p.eig_thr = eig_thr;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

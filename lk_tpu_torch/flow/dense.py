@@ -239,7 +239,8 @@ def _grads_fused_level(prev, next_, flow_init, cfg, dense_cfg, r_disp,
         flow_in[None].contiguous(), tile_h=th, tile_w=tw, max_disp=r_disp,
         local=dense_cfg.warp_local, n_iters=dense_cfg.outer_iters,
         coarse_in=coarse_planes_init is not None,
-        min_eig_threshold=cfg.min_eig_threshold, win_k=win_h)
+        min_eig_threshold=cfg.min_eig_threshold, win_k=win_h,
+        resident=grads_resident)
     flow = flow[0, :, :h0, :w0]
     return DenseFlowResult(
         flow=flow if planes_out else flow.movedim(0, -1),

@@ -35,14 +35,15 @@ Semantics (per pair f: prev[f] -> next[f], per reference tile (th, tw)):
 The TPU kernels round the box-sum and coarse-upsample data to bf16 (the MXU
 band matmuls) and may take a bf16 Scharr (``scharr_mxu``).  Those are TPU
 precision trades: this port always computes the exact f32 form.  One
-layout quirk is not reproduced: the TPU ping-pong kernel writes 128-aligned
-output widths, so at ``n_iters > 1`` with ``tile_w % 128 != 0`` its right
-halo columns pick up the current flow's edge; here they keep the initial
-flow, as everywhere else outside the level.  The 1080p video path never
-meets this (its tiled levels iterate once), but the per-call
-``dense_pyramidal_lk`` does when its top level is tiled in rows and its
-width is not a multiple of 128; tests/test_torch_lk_level.py pins the
-difference to the rightmost 2 * HALO columns.
+layout effect of the TPU's is reproduced: the tiled (ping-pong) kernel
+writes 128-aligned output widths, so from the second iteration on, at
+``tile_w % 128 != 0``, the first ``warp_kernels.right_spill(tile_w)``
+columns right of the level (in the level's rows) carry the current flow's
+edge column instead of the initial flow.  The resident kernels keep the
+initial flow there.  The 1080p video path never meets this (its tiled
+levels iterate once, its top is resident at 256 columns); a tiled level
+with iterations does (tests/test_torch_lk_level.py pins it against the
+TPU kernel), as the precomputed-A level does (``warp_kernels``).
 """
 
 from __future__ import annotations
@@ -89,9 +90,13 @@ def pick_tile_w(w: int) -> tuple[int, int]:
 
 
 def variant(k: int, h: int, w: int, tile_h: int, tile_w: int,
-            coarse_in: bool) -> str:
-    """Which TPU kernel a call stands in for (counter and report key)."""
-    resident = (h, w) == (tile_h, tile_w) and not coarse_in
+            coarse_in: bool, resident: bool | None = None) -> str:
+    """Which TPU kernel a call stands in for (counter and report key).
+    ``resident`` None: a tile that covers the whole level is the resident
+    form."""
+    if resident is None:
+        resident = (h, w) == (tile_h, tile_w)
+    resident = resident and not coarse_in
     if k > 1:
         return "resident_batched" if resident else "batched"
     return "resident" if resident else "tiled"
@@ -133,28 +138,39 @@ def fused_lk_level(prev: torch.Tensor, nxt: torch.Tensor, flow: torch.Tensor,
                    *, tile_h: int, tile_w: int, max_disp: int, local: int,
                    n_iters: int = 1, coarse_in: bool = False,
                    write_stats: bool = True, min_eig_threshold: float = 1e-4,
-                   win_k: int = 15):
+                   win_k: int = 15, resident: bool | None = None):
     """One pyramid level of fused IC dense LK for K pairs.
 
     prev, nxt: (K, H, W) float32, pair f is prev[f] -> nxt[f] (views such
     as ``frames[:-1]`` / ``frames[1:]`` are fine).  flow: (K, 2, H, W)
     initial flow planes, or (K, 2, H/2, W/2) coarser-level planes with
-    ``coarse_in``.  Returns (flow (K, 2, H, W), min_eig (K, H, W),
+    ``coarse_in``.  ``resident``: whether the call stands in for a resident
+    TPU kernel (no right-halo refresh, module docstring); None: when one
+    tile covers the level.  Returns (flow (K, 2, H, W), min_eig (K, H, W),
     valid (K, H, W) bool); the stats are None without ``write_stats``.
     """
+    kw = dict(tile_h=tile_h, tile_w=tile_w, max_disp=max_disp, local=local,
+              n_iters=n_iters, coarse_in=coarse_in, write_stats=write_stats,
+              min_eig_threshold=min_eig_threshold, win_k=win_k,
+              resident=resident)
     if prev.device.type == "cpu":
-        return fused_lk_level_reference(
-            prev, nxt, flow, tile_h=tile_h, tile_w=tile_w, max_disp=max_disp,
-            local=local, n_iters=n_iters, coarse_in=coarse_in,
-            write_stats=write_stats, min_eig_threshold=min_eig_threshold,
-            win_k=win_k)
+        return fused_lk_level_reference(prev, nxt, flow, **kw)
     if prev.device.type != "cuda":
         raise ValueError(f"fused_lk_level: unsupported device {prev.device}")
-    return _fused_lk_level_cuda(
-        prev, nxt, flow, tile_h=tile_h, tile_w=tile_w, max_disp=max_disp,
-        local=local, n_iters=n_iters, coarse_in=coarse_in,
-        write_stats=write_stats, min_eig_threshold=min_eig_threshold,
-        win_k=win_k)
+    return _fused_lk_level_cuda(prev, nxt, flow, **kw)
+
+
+def _spill(it: int, k: int, h: int, w: int, tile_h: int, tile_w: int,
+           coarse_in: bool, resident: bool | None) -> int:
+    """Columns right of the level that iteration ``it`` reads as the
+    current flow's edge (module docstring): the tiled TPU kernel's
+    128-aligned writes, from the second iteration on."""
+    from lk_tpu_torch.flow import warp_kernels
+
+    if it == 0 or variant(k, h, w, tile_h, tile_w, coarse_in,
+                          resident).startswith("resident"):
+        return 0
+    return warp_kernels.right_spill(tile_w)
 
 
 # ---------------------------------------------------------------------------
@@ -173,7 +189,7 @@ def _frame_stride(t: torch.Tensor) -> int:
 
 def _fused_lk_level_cuda(prev, nxt, flow, *, tile_h, tile_w, max_disp, local,
                          n_iters, coarse_in, write_stats, min_eig_threshold,
-                         win_k, shape=-1):
+                         win_k, resident=None, shape=-1):
     """The kernel's launches.  ``shape`` picks the block shape (an index
     into ``BLOCK_SHAPES``; -1: the kernel's own choice from the level's
     size); every shape computes the same bits."""
@@ -192,7 +208,7 @@ def _fused_lk_level_cuda(prev, nxt, flow, *, tile_h, tile_w, max_disp, local,
         if write_stats else None
     thr = float(min_eig_threshold) * 1024.0
     ch, cw = (h // 2, w // 2) if coarse_in else (0, 0)
-    key = variant(k, h, w, tile_h, tile_w, coarse_in)
+    key = variant(k, h, w, tile_h, tile_w, coarse_in, resident)
     cur = None if coarse_in else init
     bufs = []
     for it in range(n_iters):
@@ -209,6 +225,7 @@ def _fused_lk_level_cuda(prev, nxt, flow, *, tile_h, tile_w, max_disp, local,
             me.data_ptr() if stats else None,
             va.data_ptr() if stats else None,
             k, h, w, ch, cw, tile_h, tile_w, int(coarse_in), local, win_k,
+            _spill(it, k, h, w, tile_h, tile_w, coarse_in, resident),
             float(max_disp), thr, shape)
         kernel_launches_by_variant[key] += 1
         cur = out
@@ -223,7 +240,8 @@ def bind(lib: ctypes.CDLL) -> None:
         p, ll, p, ll,          # prev, prev pair stride, next, next stride
         p, p, p, p, p,         # cur, init, out, min_eig, valid
         i, i, i, i, i,         # K, H, W, CH, CW
-        i, i, i, i, i,         # tile_h, tile_w, coarse, local, win_k
+        i, i, i, i, i, i,      # tile_h, tile_w, coarse, local, win_k,
+                               # spill
         f, f, i, p,            # max_disp, eig_thr, block shape, stream
     ]
     lib.lk_fused_level_launch.restype = i
@@ -241,7 +259,8 @@ def fused_lk_level_reference(prev: torch.Tensor, nxt: torch.Tensor,
                              coarse_in: bool = False,
                              write_stats: bool = True,
                              min_eig_threshold: float = 1e-4,
-                             win_k: int = 15):
+                             win_k: int = 15,
+                             resident: bool | None = None):
     """Plain PyTorch form of ``fused_lk_level``: same signature, same
     semantics, one Python iteration per reference tile.
 
@@ -263,12 +282,13 @@ def fused_lk_level_reference(prev: torch.Tensor, nxt: torch.Tensor,
         if write_stats else None
     thr = float(min_eig_threshold) * 1024.0
     for it in range(n_iters):
+        spill = _spill(it, k, h, w, tile_h, tile_w, coarse_in, resident)
         out = torch.empty((k, 2, h, w), dtype=torch.float32, device=dev)
         for ty0 in range(0, h, tile_h):
             for tx0 in range(0, w, tile_w):
                 f, m, v = _tile_step(
                     prev, nxt, cur, init, coarse_in, ty0, tx0, tile_h,
-                    tile_w, float(max_disp), local, win_k, thr)
+                    tile_w, float(max_disp), local, win_k, thr, spill)
                 out[:, :, ty0:ty0 + tile_h, tx0:tx0 + tile_w] = f
                 if it == 0 and write_stats:
                     me[:, ty0:ty0 + tile_h, tx0:tx0 + tile_w] = m
@@ -293,8 +313,8 @@ def _flow_planes(cur, init, coarse_in, ys, xs, h, w, spill=0):
     the module docstring: current flow inside the level, initial flow
     edge-replicated outside; or the x2 coarse upsample).  ``spill`` > 0
     also gives the first ``spill`` columns right of the level, in the
-    level's rows, the current flow's edge column (the precomputed-A
-    level's right halo, flow/warp_kernels.py)."""
+    level's rows, the current flow's edge column (the tiled levels' right
+    halo from their second iteration on)."""
     if coarse_in:
         ch, cw = init.shape[-2:]
         ylo, yhi, wly, why = _coarse_taps(ys, ch)
@@ -369,7 +389,7 @@ def warp_region(nxt, fx, fyw, y0, x0, ref, bound, local):
 
 
 def _tile_step(prev, nxt, cur, init, coarse_in, ty0, tx0, th, tw, bound,
-               local, win_k, thr):
+               local, win_k, thr, spill):
     """One IC iteration of the reference tile at (ty0, tx0), all K pairs."""
     k, h, w = prev.shape
     dev = prev.device
@@ -392,7 +412,7 @@ def _tile_step(prev, nxt, cur, init, coarse_in, ty0, tx0, th, tw, bound,
     # up to 2*local+1 columns right of it (edge column of the tile's ext)
     ys = torch.arange(y0, y0 + eth, device=dev)
     xs = x0 + torch.arange(wide, device=dev).clamp(max=etw - 1)
-    fl = _flow_planes(cur, init, coarse_in, ys, xs, h, w)
+    fl = _flow_planes(cur, init, coarse_in, ys, xs, h, w, spill)
     fx, fyw = fl[:, 0, :, :etw], fl[:, 1]
     fy = fyw[:, :, :etw]
 

@@ -31,8 +31,7 @@ that, from the second iteration on, the first ``min(8, ceil(tile_w/128)*128
 current flow's edge column.  The TPU kernel writes 128-aligned widths, so
 its rightmost tile refreshes them; the port reproduces this here, where
 the 1080p precomputed-A path meets it at its top level (136x240, 6
-iterations), unlike the grads-fused level (``lk_kernels``), which keeps
-the initial flow (ROADMAP.md Queue 3).
+iterations), as the tiled grads-fused level does (``lk_kernels``).
 """
 
 from __future__ import annotations
@@ -57,9 +56,9 @@ def reset_counters() -> None:
 
 
 def right_spill(tile_w: int) -> int:
-    """Columns right of the level that the TPU precomputed-A kernel's
-    128-aligned writes refresh with the current flow's edge (module
-    docstring); only the halo's 8 matter."""
+    """Columns right of the level that the tiled TPU kernels' 128-aligned
+    writes refresh with the current flow's edge (module docstring); only
+    the halo's 8 matter."""
     return min(HALO, -(-tile_w // 128) * 128 - tile_w)
 
 

@@ -18,10 +18,10 @@ with tensors on the CPU, their plain versions.
 one video: frames in, ``csv_rows`` (vps_<video>.csv) and the other sinks
 out, with checkpoints and a prefetching producer thread.
 ``MultiStreamPipeline`` batches B same-geometry streams through one step
-and drains each stream's outputs into its own ``VideoPipeline``.
-
-Not ported here (ROADMAP.md Queue 1, the parallel layer):
-``MultiStreamPipeline``'s ``mesh``.
+and drains each stream's outputs into its own ``VideoPipeline``; with a
+``mesh`` (``torch.distributed``, one process per device) each rank holds
+the staging, states and sinks of its B/D streams and runs the ordinary
+single-device serving step on them, with no collective.
 """
 
 from __future__ import annotations
@@ -424,18 +424,38 @@ class MultiStreamPipeline:
     tensor on the device (``feed_staged``, the serving hot path).  The
     first feed consumes one frame per stream for the initial detection.
     Per-stream host bookkeeping goes to the B ``VideoPipeline`` sinks in
-    ``pipes`` (all sharing one cached runner and mask set)."""
+    ``pipes`` (all sharing one cached runner and mask set).
+
+    ``mesh``: a ``DeviceMesh`` (``lk_tpu_torch.parallel``) whose
+    ``mesh_axis`` shards the streams.  Each rank then owns the
+    ``n_local`` streams ``self.streams`` of the ``n_streams`` (their sinks
+    are ``pipes``; its device is ``device``) and steps them as the
+    single-device pipeline would: streams never talk to each other, so the
+    step has no collective.  Feeds, ``n_valid`` and slot indices are this
+    rank's streams only."""
 
     def __init__(self, cfg: PipelineConfig, src_size: Tuple[int, int],
                  n_streams: int, chunk: int = 16,
-                 host_preprocess: bool = True, device="cuda"):
+                 host_preprocess: bool = True, device="cuda", mesh=None,
+                 mesh_axis: str = "streams"):
         self.cfg = cfg
         self.n_streams = n_streams
         self.chunk = chunk
         self.src_size = src_size
         self.host_preprocess = host_preprocess
         self.device = torch.device(device)
-        self.pipes = [self._sink() for _ in range(n_streams)]
+        self.n_local = n_streams
+        self.streams = slice(0, n_streams)
+        if mesh is not None:
+            size = mesh.size(mesh.mesh_dim_names.index(mesh_axis))
+            if n_streams % size != 0:
+                raise ValueError(
+                    f"n_streams={n_streams} not divisible by mesh axis "
+                    f"{mesh_axis!r} size {size}")
+            self.n_local = n_streams // size
+            at = mesh.get_local_rank(mesh_axis) * self.n_local
+            self.streams = slice(at, at + self.n_local)
+        self.pipes = [self._sink() for _ in range(self.n_local)]
         self.width = self.pipes[0].width
         self.height = self.pipes[0].height
         self._run, self._init, self.masks = make_batched_chunk_runner(
@@ -452,7 +472,7 @@ class MultiStreamPipeline:
         # padding frames the caller stages, its outputs dropped at the
         # drain by the per-chunk n_valid counts; assign_stream swaps a
         # fresh state into the slot and retires the old sink
-        self.active = np.ones(n_streams, dtype=bool)
+        self.active = np.ones(self.n_local, dtype=bool)
         self.retired: List[VideoPipeline] = []
 
     def _sink(self) -> VideoPipeline:
@@ -489,9 +509,9 @@ class MultiStreamPipeline:
         ``n_valid`` wins; else active slots own the whole chunk."""
         if n_valid is not None:
             nv = np.asarray(n_valid, np.int64).copy()
-            if nv.shape != (self.n_streams,):
+            if nv.shape != (self.n_local,):
                 raise ValueError(f"n_valid {nv.shape}, expected "
-                                 f"({self.n_streams},)")
+                                 f"({self.n_local},)")
             return nv
         if self.active.all():
             return None
@@ -554,9 +574,9 @@ class MultiStreamPipeline:
         that belong to each slot's stream (the consumed init frame not
         counted); by default the whole chunk for active slots, 0 for
         finished ones."""
-        if grays.shape[0] != self.n_streams:
+        if grays.shape[0] != self.n_local:
             raise ValueError(f"{grays.shape[0]} streams fed to a "
-                             f"{self.n_streams}-stream pipeline")
+                             f"{self.n_local}-stream pipeline")
         if self.states is None:
             self._start(grays[:, 0].to(torch.float32))
             grays = grays[:, 1:]
@@ -570,9 +590,9 @@ class MultiStreamPipeline:
         tensor: slice, finish (one kernel launch for all n * B frames) and
         the chunk.  Staging at source resolution is first resized
         (INTER_AREA) to the processing size."""
-        if staging_fb.shape[1] != self.n_streams:
+        if staging_fb.shape[1] != self.n_local:
             raise ValueError(f"staging holds {staging_fb.shape[1]} streams, "
-                             f"the pipeline {self.n_streams}")
+                             f"the pipeline {self.n_local}")
         src_hw = tuple(int(d) for d in staging_fb.shape[2:])
         resize = src_hw != (self.height, self.width)
 

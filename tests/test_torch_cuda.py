@@ -64,6 +64,11 @@ LEVEL_CASES = {
     # a window narrower than 15 taps (the kernel's run-time win_k path)
     "win9": (128, 256, 64, 128, 5, 2, False, True, "noise", 9),
     "win9_coarse": (128, 256, 64, 128, 3, 1, True, True, "noise", 9),
+    # tile_w % 128 != 0 at 2 iterations: the second reads the right halo's
+    # first warp_kernels.right_spill(tile_w) columns from the current flow
+    # (8 at 136x480 tiles, 6 at 250 columns)
+    "spill": (272, 480, 136, 480, 5, 2, False, True, "noise"),
+    "spill_ragged": (96, 250, 48, 250, 4, 2, False, True, "far"),
 }
 
 
@@ -646,3 +651,154 @@ def test_serve_on_card(cuda_device):
         y = np.array(b.csv_rows, np.float64).reshape(-1, 2)
         assert x.shape == y.shape and len(x) > 0
         assert float(np.abs(x - y).max(initial=0.0)) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the parallel layer at world size 1 under NCCL (one card: NCCL takes one
+# rank per GPU; the 2-rank legs run under gloo in chip_smoke.py phase 24)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def nccl_world1(cuda_device):
+    import socket
+
+    import torch.distributed as dist
+    from lk_tpu_torch.parallel.multihost import init_multihost
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    init_multihost(f"localhost:{port}", 1, 0)
+    assert dist.get_backend() == "nccl"
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _rank_program(prev, nxt, flow, cfg, dcfg, per_iter, disp=8):
+    """The world-1 spatial level's one rank program: the frame padded with
+    its edge rows replicated (halo_exchange at the frame's edges), the
+    level run on it, the frame's rows kept; per iteration with the eps
+    mask carried across rounds (XLA level)."""
+    import dataclasses
+
+    from lk_tpu_torch.flow import dense
+    from lk_tpu_torch.parallel.spatial import (iteration_halo,
+                                               single_exchange_halo)
+
+    h = prev.shape[0]
+
+    def level(f, halo, d):
+        rows = torch.arange(-halo, h + halo, device=prev.device).clamp(0, h - 1)
+        return dense.dense_lk_level(prev[rows], nxt[rows], f[rows], cfg, d,
+                                    max_disp=disp).flow[halo:halo + h]
+
+    if not per_iter:
+        return level(flow, single_exchange_halo(cfg, dcfg, disp), dcfg)
+    one = dataclasses.replace(dcfg, outer_iters=1, iter_schedule=())
+    active = torch.ones(flow.shape[:2], dtype=torch.bool, device=flow.device)
+    for _ in range(dcfg.outer_iters):
+        f_new = level(flow, iteration_halo(cfg, disp), one)
+        if dcfg.use_pallas_fused:
+            flow = f_new
+            continue
+        d = f_new - flow
+        flow = torch.where(active[..., None], f_new, flow)
+        active = active & (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]
+                           > cfg.eps * cfg.eps)
+    return flow
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_iter", [False, True])
+@pytest.mark.parametrize("fused", [False, True])
+def test_spatial_level_world1_nccl(cuda_device, nccl_world1, fused,
+                                   per_iter):
+    """spatial_dense_lk_level on a 1x1 NCCL mesh at 544x480 (the fused
+    level tiled, 480 columns): equal (torch.equal) to its rank program; the
+    single exchange's XLA level equal to the unsharded level outside the
+    replicated-edge belt; under use_pallas_fused the fused kernel launched
+    once per iteration and no plain version run."""
+    from lk_tpu_torch.config import DenseLKConfig, LKConfig
+    from lk_tpu_torch.flow import dense
+    from lk_tpu_torch.parallel import make_mesh, spatial_dense_lk_level
+    from lk_tpu_torch.parallel.spatial import single_exchange_halo
+
+    frames = _frames(2, 544, 480, cuda_device)
+    zero = torch.zeros((544, 480, 2), device=cuda_device)
+    cfg, dcfg = LKConfig(), DenseLKConfig(use_pallas_fused=fused)
+    fn = spatial_dense_lk_level(make_mesh((1, 1)), cfg, dcfg, max_disp=8,
+                                exchange_per_iter=per_iter)
+    lk.reset_counters()
+    got = fn(frames[0], frames[1], zero)
+    torch.cuda.synchronize()
+    assert lk.plain_calls == 0
+    assert sum(lk.kernel_launches_by_variant.values()) == (
+        dcfg.outer_iters if fused else 0)
+    assert torch.equal(got, _rank_program(frames[0], frames[1], zero, cfg,
+                                          dcfg, per_iter))
+    if not (fused or per_iter):
+        belt = single_exchange_halo(cfg, dcfg, 8)
+        whole = dense.dense_lk_level(frames[0], frames[1], zero, cfg, dcfg,
+                                     max_disp=8).flow
+        assert torch.equal(got[belt:-belt], whole[belt:-belt])
+
+
+@pytest.mark.cuda
+def test_sharded_pyramid_world1_nccl(cuda_device, nccl_world1):
+    """sharded_dense_pyramidal_lk on a 1x1 NCCL mesh equals the unsharded
+    dense_pyramidal_lk at every pixel (the pyramid kernel on both)."""
+    from lk_tpu_torch.flow import dense
+    from lk_tpu_torch.parallel import make_mesh, sharded_dense_pyramidal_lk
+
+    frames = _frames(2, 544, 960, cuda_device)
+    _reset_all()
+    got = sharded_dense_pyramidal_lk(make_mesh((1, 1)))(frames[0], frames[1])
+    torch.cuda.synchronize()
+    assert blur.kernel_launches > 0 and blur.plain_calls == 0
+    assert torch.equal(got, dense.dense_pyramidal_lk(frames[0],
+                                                     frames[1]).flow)
+
+
+@pytest.mark.cuda
+def test_sharded_serving_world1_nccl(cuda_device, nccl_world1):
+    """MultiStreamPipeline(mesh=...) on a 1-rank NCCL 'streams' mesh: every
+    stream's csv rows, shown VPs and cross points equal (np.array_equal)
+    the unsharded pipeline's, through the finish, gather and pyramid
+    kernels."""
+    import dataclasses
+
+    from lk_tpu_torch.io.video import SyntheticRoadStream
+    from lk_tpu_torch.models import PRESETS
+    from lk_tpu_torch.parallel import make_mesh
+    from lk_tpu_torch.pipeline.runner import MultiStreamPipeline
+
+    w, h, b, f, chunk = 256, 144, 4, 17, 8
+    cfg = dataclasses.replace(PRESETS["final"], width=w, out_cap=48)
+    u8 = torch.stack([SyntheticRoadStream(
+        width=w, height=h, zoom=1.03, seed=s, n_frames=f, color=False,
+        vp=(w * 0.45, h * 0.45), device=cuda_device).gray_frames(0, f)
+        for s in range(b)], dim=1)
+
+    def run(mesh):
+        ms = MultiStreamPipeline(cfg, src_size=(w, h), n_streams=b,
+                                 chunk=chunk, mesh=mesh)
+        t = 0
+        while t < f:
+            n = min(chunk + (1 if ms.states is None else 0), f - t)
+            ms.feed_staged(u8, t, n)
+            t += n
+        ms.drain()
+        return ms
+
+    _reset_all()
+    sharded = run(make_mesh((1,), ("streams",)))
+    assert finish.kernel_launches > 0 and sparse.kernel_launches > 0
+    assert finish.plain_calls + sparse.plain_calls + blur.plain_calls == 0
+    single = run(None)
+    for p, q in zip(sharded.pipes, single.pipes):
+        assert p.frames_done == q.frames_done == f - 1
+        assert p.csv_rows == q.csv_rows
+        assert p.vp_per_frame == q.vp_per_frame
+        assert p.cross_points == q.cross_points

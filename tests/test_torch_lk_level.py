@@ -159,14 +159,17 @@ def test_tiled_iterations_match_maker(rng, precision):
                   seams=((0, th), (1, tw)))
 
 
-def test_tiled_iterations_right_halo_deviation(rng, precision):
-    """The one side the port takes against the TPU kernel (ROADMAP Queue 3,
-    pallas_kernels.py:535-548, 935-941): at n_iters > 1 with
-    tile_w % 128 != 0 the ping-pong kernel writes 128-aligned widths, so the
-    last tile column's right halo picks up the current flow's edge; the
-    port keeps the initial flow there.  Everything left of the right band
-    (2 * HALO columns) agrees within the stated tolerance; inside the band
-    the two differ by far more than rounding."""
+def test_tiled_iterations_right_halo(rng, precision, monkeypatch):
+    """The side the port takes (flow/lk_kernels.py docstring, ROADMAP
+    Queue 3; pallas_kernels.py:535-548, 935-941): at n_iters > 1 with
+    tile_w % 128 != 0 the ping-pong kernel writes 128-aligned widths, so
+    the last tile column's right halo picks up the current flow's edge.
+    The port reproduces it: equal to the maker everywhere, the right band
+    included.  Keeping the initial flow there instead (``right_spill`` 0)
+    would differ by far more than rounding in the rightmost 2 * HALO
+    columns."""
+    from lk_tpu_torch.flow import warp_kernels as wk
+
     h, w, th, tw, disp, local = 128, 384, 64, 192, 6, 4
     band = 2 * lk.HALO
     prv, nxt = affine_clip(rng, h, w, 2)
@@ -176,15 +179,44 @@ def test_tiled_iterations_right_halo_deviation(rng, precision):
         max_disp=disp, tile_h=th, tile_w=tw, local=local, planes_out=True,
         scharr_mxu=False)
     fj, mj, vj = run(jnp.asarray(init))
+
+    def port():
+        return lk.fused_lk_level(
+            torch.from_numpy(prv)[None], torch.from_numpy(nxt)[None],
+            torch.from_numpy(init).permute(2, 0, 1)[None].contiguous(),
+            tile_h=th, tile_w=tw, max_disp=disp, local=local, n_iters=2,
+            min_eig_threshold=THR)
+
+    ft, mt, vt = port()
+    _assert_close(precision, fj, ft[0], mj, mt[0], vj, vt[0],
+                  seams=((0, th), (1, tw), (1, w - band)))
+    monkeypatch.setattr(wk, "right_spill", lambda tile_w: 0)
+    kept = port()[0][0].numpy()
+    fj = np.asarray(fj)
+    assert np.abs(fj[..., w - band:] - kept[..., w - band:]).max() > 0.1
+
+
+def test_single_tile_tiled_level_matches_maker(rng, precision):
+    """#4 make_fused_lk_level_grads on one 64x240 tile, 2 iterations (the
+    tiled kernel where the resident one would fit, as dense.py picks it
+    under fused_resident_max_h): ``resident=False`` takes the tiled
+    kernel's right-halo refresh (8 columns at 240), equal to the maker
+    everywhere."""
+    h, w, disp, local = 64, 240, 6, 4
+    prv, nxt = affine_clip(rng, h, w, 2)
+    init = ((rng.random((h, w, 2)) - 0.5) * 3.0).astype(np.float32)
+    run = pk.make_fused_lk_level_grads(
+        jnp.asarray(nxt), jnp.asarray(prv), n_iters=2, min_eig_threshold=THR,
+        max_disp=disp, tile_h=h, tile_w=w, local=local, planes_out=True,
+        scharr_mxu=False)
+    fj, mj, vj = run(jnp.asarray(init))
     ft, mt, vt = lk.fused_lk_level(
         torch.from_numpy(prv)[None], torch.from_numpy(nxt)[None],
         torch.from_numpy(init).permute(2, 0, 1)[None].contiguous(),
-        tile_h=th, tile_w=tw, max_disp=disp, local=local, n_iters=2,
-        min_eig_threshold=THR)
-    fj, ft = np.asarray(fj), ft[0].numpy()
-    _assert_close(precision, fj[..., :w - band], ft[..., :w - band],
-                  mj, mt[0], vj, vt[0], seams=((0, th), (1, tw)))
-    assert np.abs(fj[..., w - band:] - ft[..., w - band:]).max() > 0.1
+        tile_h=h, tile_w=w, max_disp=disp, local=local, n_iters=2,
+        min_eig_threshold=THR, resident=False)
+    _assert_close(precision, fj, ft[0], mj, mt[0], vj, vt[0],
+                  seams=((1, w - 2 * lk.HALO),))
 
 
 def test_batched_resident_matches_maker(rng, precision):

@@ -52,7 +52,11 @@ PORT_MODULES = (
     "lk_tpu_torch.apps._common", "lk_tpu_torch.apps.final",
     "lk_tpu_torch.apps.vp_detect", "lk_tpu_torch.apps.classify",
     "lk_tpu_torch.apps.masking", "lk_tpu_torch.apps.roadlines",
-    "lk_tpu_torch.apps.display", "lk_tpu_torch.apps.serve")
+    "lk_tpu_torch.apps.display", "lk_tpu_torch.apps.serve",
+    "lk_tpu_torch.parallel", "lk_tpu_torch.parallel.mesh",
+    "lk_tpu_torch.parallel.multihost", "lk_tpu_torch.parallel.streams",
+    "lk_tpu_torch.parallel.spatial", "lk_tpu_torch.parallel.auto",
+    "lk_tpu_torch.parallel.dryrun")
 
 
 def test_import_pulls_no_jax():
