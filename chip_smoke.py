@@ -6,8 +6,9 @@ LK over 1080p video with the production config.  The per-pair dense
 paths at 1080p: A, ``lk_tpu_torch.entry.entry()``'s program (the
 production config per pair, pyramid kernel + fused level); B, the
 warp-only / precomputed-A config (local warp at L0-L2, the precomputed
-level at the top); C, the default config's XLA level (plain PyTorch but
-for the pyramid kernel).  The serving path: batched VP serving,
+level at the top); B16, B with both bf16 options (bf16 box sums, the
+bf16-window local warp); C, the default config's XLA level (plain PyTorch
+but for the pyramid kernel); C16, C with bf16 box sums.  The serving path: batched VP serving,
 MultiStreamPipeline at 64 streams of 860x483 frames, chunk 16, out_cap 48,
 preset final, fed from a u8 staging array on the card, as apps/serve.py
 runs it.  The single-stream VP pipeline: VideoPipeline, preset final, a
@@ -45,7 +46,10 @@ run_vp_app runs it.
      the grid capped at 1, 2 and 4 blocks per SM; the local warp
      at path B's padded L0-L2 with a zoom flow and outliers beyond +-local,
      torch.equal, each level timed beside its bound and the parent's design
-     (WARP_PARENT);
+     (WARP_PARENT); its bf16-window instances on the same levels (next
+     rounded to bf16 first), torch.equal to their plain version and to the
+     f32 instance on the rounded plane, timed beside their bound and the
+     f32 instance, with the cast's time;
      the precomputed level at path B's top (136x240, 6 iterations) and
      tiled (576x1024 on 64x512 tiles, 2 iterations), one launch per call,
      torch.equal with every block shape at the resident grid and at one
@@ -57,14 +61,15 @@ run_vp_app runs it.
      fused level resident 6 + tiled 3, no plain call), EPE < 0.1 px, and
      the flow equal to the run with the plain pyramid and to the video
      chain's pair 0 bit for bit;
-  8. paths B and C on both scenes' first pair, counted the same way (B:
-     pyramid 1, local warp 3, precomputed level 1; C: pyramid 1 only);
-     B's flow, min_eig and valid equal to the runs with the plain
-     precomputed level and with the plain local warp; B's EPE < 0.1 px,
-     C's printed;
-  9. per-pair timing with CUDA events: ms per pair of paths A, B and C;
-     with --profile also each path's host enqueue and device time by
-     kernel group;
+  8. paths B, B16, C and C16 on both scenes' first pair, counted the same
+     way (B: pyramid 1, local warp 3, precomputed level 1; B16: the same,
+     its 3 local warps the bf16 instances; C and C16: pyramid 1 only);
+     B's and B16's flow, min_eig and valid equal to the runs with the
+     plain precomputed level and with the plain local warp; the EPE of B,
+     B16 and C16 < 0.1 px, C's printed;
+  9. per-pair timing with CUDA events: ms per pair of paths A, B, B16, C
+     and C16; with --profile also each path's host enqueue and device
+     time by kernel group;
  10. serving scenes: 64 synthetic road streams expanding from a planted
      VP per stream (apps/serve.py's), each the package's
      SyntheticRoadStream (seed s) rendered on the card into the 64-frame
@@ -124,6 +129,15 @@ run_vp_app runs it.
      px; the async run's rows equal the sync run's, and the first 4
      streams' rows within ROWS_TOL of a 4-stream run through the plain
      versions; the aggregate frames/s of each timed pass.
+
+ 25. the functions the port added last (run after phase 9, while the
+     video's frames are on the card): gaussian_pyramid (one pyramid
+     launch), resize_linear, imutils_width_resize, extract_patch (corners
+     in and outside the frame), classify_dense_flow and vanishing_lines on
+     card tensors against the same calls on CPU tensors (torch.equal, or
+     the stated tolerance where a product or a reduction is summed in
+     another order), and the 1080p video with padded_build equal to phase
+     4's video bit for bit, timed with utils.Timer.
 
 Phases 18-20 print their wall time.
 
@@ -196,6 +210,11 @@ PATH_CFGS = {
     "B": dict(use_pallas_warp=True, fused_grads_in_kernel=False),
     "C": dict(),                                             # DenseLKConfig()
 }
+# Paths B16 and C16: B with both bf16 options (bf16 A and b sums, the bf16
+# window of the local warp), C with bf16 sums.
+PATH_CFGS["B16"] = dict(PATH_CFGS["B"], bf16_box_sums=True,
+                        bf16_warp_window=True)
+PATH_CFGS["C16"] = dict(bf16_box_sums=True)
 # f32 operations per output pixel, counted on the kernel bodies: pyrDown
 # (9 per vertical-pass value at half the rows and all the columns, 9 per
 # output: 6.75 per input pixel); the local warp (two tent passes of 15:
@@ -335,6 +354,11 @@ def dense_counts() -> tuple[dict, int]:
 
     counts = dict(lk.kernel_launches_by_variant, **wk.kernel_launches,
                   pyr_down=blur.kernel_launches)
+    # the bf16 local warp's launches; scripts/torch_turns.py also runs
+    # trees older than its counter
+    by_window = getattr(wk, "local_warp_launches_by_window", None)
+    if by_window is not None:
+        counts["local_warp_bf16"] = by_window["bfloat16"]
     return counts, (lk.plain_calls + sum(wk.plain_calls.values())
                     + blur.plain_calls)
 
@@ -849,6 +873,9 @@ def perpair_kernels(frames0, cfg, card, reps=20):
     ms_w = pms_w = lib_w = b_w = dev_w = 0.0
     err_w = 0.0
     by_w = set()
+    # the bf16-window instances (bf16_warp_window) on the same levels
+    w16 = dict(ms=0.0, pms=0.0, lib=0.0, b=0.0, dev=0.0, err=0.0, cast=0.0)
+    by16 = set()
     top = None
     for level, (h, w), lcfg, (_, th, tw, hp, wp) in b_levels:
         nxt = blur.edge_pad(nxt_levels[level], hp, wp).contiguous()
@@ -889,11 +916,54 @@ def perpair_kernels(frames0, cfg, card, reps=20):
               f"the parent's design {WARP_PARENT[level]} us; plain "
               f"{pms:.3f} ms, library F.grid_sample (2-D, no +-local "
               f"clamp) {lib:.4f} ms  [{card}]")
+        # next rounded to bf16 once, outside the kernel, as the level does
+        nxt16 = nxt.to(torch.bfloat16)
+        kw16 = dict(kw, window_dtype=torch.bfloat16)
+        want = wk.local_warp_reference(nxt16, flow, **kw16)
+        got = wk.local_warp(nxt16, flow, **kw16)
+        e = cmp(got, want, f"local_warp_bf16 L{level}")
+        check(torch.equal(got, want), f"local_warp_bf16 L{level}: differs "
+              f"from the plain version")
+        check(torch.equal(got, wk.local_warp(nxt16.to(torch.float32), flow,
+                                             **kw)),
+              f"local_warp_bf16 L{level}: differs from the f32 instance on "
+              f"the rounded plane")
+        w16["err"] = max(w16["err"], e)
+        ms = cuda_ms(lambda: wk.local_warp(nxt16, flow, **kw16), reps)
+        dev_us16 = device_us(lambda: wk.local_warp(nxt16, flow, **kw16),
+                             {"local_warp_kernel": 1})
+        pms = cuda_ms(lambda: wk.local_warp_reference(nxt16, flow, **kw16),
+                      3)
+        cast = cuda_ms(lambda: nxt.to(torch.bfloat16), reps)
+        img16 = nxt16.to(torch.float32)[None, None]
+        lib = cuda_ms(lambda: F.grid_sample(
+            img16, grid, mode="bilinear", padding_mode="border",
+            align_corners=True), reps)
+        bm, bb = bound(hp * wp * 14, hp * wp * WARP_OPS_PX)
+        for k, v in (("ms", ms), ("pms", pms), ("lib", lib), ("b", bm),
+                     ("dev", dev_us16), ("cast", cast)):
+            w16[k] += v
+        by16.add(bb)
+        print(f"[kernel] local_warp_bf16 L{level} {hp}x{wp} (next bf16): "
+              f"torch.equal to the plain version and to the f32 instance on "
+              f"the rounded plane; kernel device {dev_us16:.1f} us (events "
+              f"{ms:.4f} ms), bound {bm * 1e3:.2f} us ({bb}, "
+              f"{bm * 1e3 / dev_us16:.0%} of it), the f32 instance "
+              f"{dev_us:.1f} us in this call; the cast to bf16 (once per "
+              f"level call, outside the kernel) {cast:.4f} ms (events); "
+              f"plain {pms:.3f} ms, library F.grid_sample on the rounded "
+              f"plane {lib:.4f} ms  [{card}]")
     print(f"[kernel] local_warp, path B's L0-L2 (3 launches): kernel "
           f"device {dev_w:.1f} us (events {ms_w:.4f} ms), bound "
           f"{b_w * 1e3:.2f} us ({b_w * 1e3 / dev_w:.0%} of it), the "
           f"parent's design {sum(WARP_PARENT.values()):.1f} us, plain "
           f"{pms_w:.3f} ms, library {lib_w:.4f} ms  [{card}]")
+    print(f"[kernel] local_warp_bf16, path B16's L0-L2 (3 launches): kernel "
+          f"device {w16['dev']:.1f} us (events {w16['ms']:.4f} ms), bound "
+          f"{w16['b'] * 1e3:.2f} us ({w16['b'] * 1e3 / w16['dev']:.0%} of "
+          f"it); the f32 instance {dev_w:.1f} us; the three casts "
+          f"{w16['cast']:.4f} ms (events); plain {w16['pms']:.3f} ms, "
+          f"library {w16['lib']:.4f} ms  [{card}]")
 
     # --- precomputed level: path B's top, and a tiled level -----------------
     prev_levels = dense.build_frame_levels(frames0[0], cfg, path_cfg("B"))
@@ -966,6 +1036,13 @@ def perpair_kernels(frames0, cfg, card, reps=20):
          "bound_ms": b_w,
          "bound_by": "bytes" if by_w == {"bytes"} else "operations",
          "library_ms": lib_w},
+        {"name": "local_warp_bf16", "route": "cuda",
+         "source": "lk_tpu_torch/csrc/local_warp.cu",
+         "replaces": "lk_tpu/flow/pallas_kernels.py:330",
+         "max_abs_err": w16["err"], "ms": w16["dev"] / 1e3,
+         "event_ms": w16["ms"], "plain_ms": w16["pms"], "bound_ms": w16["b"],
+         "bound_by": "bytes" if by16 == {"bytes"} else "operations",
+         "library_ms": w16["lib"]},
         {"name": "fused_lk_level_precomputed", "route": "cuda",
          "source": "lk_tpu_torch/csrc/fused_level_pre.cu",
          "replaces": "lk_tpu/flow/pallas_kernels.py:2040",
@@ -1125,7 +1202,10 @@ def pyramid_phase(frames0, cfg, card, reps=20):
 EXPECT = {   # launches per pair at 1080p; every other count 0
     "A": {"pyr_down": 1, "resident": 6, "tiled": 3},
     "B": {"pyr_down": 1, "local_warp": 3, "fused_lk_level_precomputed": 1},
+    "B16": {"pyr_down": 1, "local_warp": 3, "local_warp_bf16": 3,
+            "fused_lk_level_precomputed": 1},
     "C": {"pyr_down": 1},
+    "C16": {"pyr_down": 1},
 }
 
 
@@ -1146,8 +1226,9 @@ def counted(name, fn, *args):
 
 
 def perpair_paths(scenes, video_pair0, cfg, card):
-    """Phases 7-8: paths A (through entry()), B and C on both scenes' first
-    pair; returns the launch counts of A's and B's first scene."""
+    """Phases 7-8: paths A (through entry()), B, B16, C and C16 on both
+    scenes' first pair; returns the launch counts of each path's first
+    scene."""
     import torch
     from lk_tpu_torch.entry import entry
     from lk_tpu_torch.flow import dense
@@ -1178,7 +1259,8 @@ def perpair_paths(scenes, video_pair0, cfg, card):
         check(epe < EPE_LIMIT, f"path A {label}: EPE {epe}")
         check(same, f"path A {label}: per-pair flow differs from the video "
               f"chain's pair 0 by {d} px")
-        for name in ("B", "C"):
+        epes = {}
+        for name in ("B", "B16", "C", "C16"):
             res, counts = counted(name, dense.dense_pyramidal_lk, pair[0],
                                   pair[1], cfg, None, path_cfg(name))
             result.setdefault(name, counts)
@@ -1186,10 +1268,12 @@ def perpair_paths(scenes, video_pair0, cfg, card):
             check(tuple(flow.shape) == (H, W, 2)
                   and bool(torch.isfinite(flow).all()),
                   f"path {name} {label}: flow {tuple(flow.shape)}")
-            epe = mean_epe(flow[None].cpu().numpy(), a)
-            limit = f" (limit {EPE_LIMIT})" if name == "B" else ""
+            epe = epes[name] = mean_epe(flow[None].cpu().numpy(), a)
+            limit = f" (limit {EPE_LIMIT})" if name != "C" else ""
+            if name in ("B16", "C16"):
+                limit += f"; {name[0]}'s {epes[name[0]]:.4f} px"
             same = ""
-            if name == "B":
+            if name in ("B", "B16"):
                 for what, plain in (("precomputed level",
                                      plain_precomputed),
                                     ("local warp", plain_local_warp)):
@@ -1197,7 +1281,7 @@ def perpair_paths(scenes, video_pair0, cfg, card):
                         ref = dense.dense_pyramidal_lk(
                             pair[0], pair[1], cfg, None, path_cfg(name))
                     check(all(torch.equal(x, y) for x, y in zip(res, ref)),
-                          f"path B {label}: the flow, min_eig or valid "
+                          f"path {name} {label}: the flow, min_eig or valid "
                           f"differ with the plain {what}")
                 same = (", flow, min_eig and valid == the runs with the "
                         "plain precomputed level and with the plain local "
@@ -1205,18 +1289,20 @@ def perpair_paths(scenes, video_pair0, cfg, card):
             print(f"[path {name}] {label}: launches {counts}, plain calls "
                   f"0, valid {float(res.valid.float().mean()):.4f}, mean "
                   f"EPE {epe:.4f} px{limit}{same}")
-            if name == "B":
-                check(epe < EPE_LIMIT, f"path B {label}: EPE {epe}")
+            if name != "C":
+                check(epe < EPE_LIMIT, f"path {name} {label}: EPE {epe}")
     return result
 
 
 def perpair_timing(frames0, cfg, card, profile):
-    """Phase 9: ms per pair of paths A, B and C (CUDA events, warm); with
-    --profile also each path's host enqueue and device breakdown."""
+    """Phase 9: ms per pair of paths A, B, B16, C and C16 (CUDA events,
+    warm); with --profile also each path's host enqueue and device
+    breakdown."""
     from lk_tpu_torch.flow import dense
 
     f0, f1 = frames0[0], frames0[1]
-    for name, reps in (("A", 20), ("B", 10), ("C", 5)):
+    for name, reps in (("A", 20), ("B", 10), ("B16", 10), ("C", 5),
+                       ("C16", 5)):
         dcfg = path_cfg(name)
 
         def run():
@@ -1227,6 +1313,138 @@ def perpair_timing(frames0, cfg, card, profile):
               f"per pair = {1e3 / ms:.1f} pairs/s  [{card}]")
         if profile:
             profile_run(f"path {name} pair", run, card)
+
+
+# --------------------------------------------------------------------------
+# the rest of lk_tpu's surface on the card
+# --------------------------------------------------------------------------
+
+def surface_phase(frames0, cfg, dcfg, card):
+    """Phase 25: each function the port added last, on card tensors, against
+    the same call on CPU tensors (the plain versions), and the 1080p video
+    with padded_build equal to phase 4's video bit for bit."""
+    import dataclasses
+
+    import torch
+    from lk_tpu_torch import ops
+    from lk_tpu_torch.config import PipelineConfig
+    from lk_tpu_torch.flow import dense
+    from lk_tpu_torch.geometry import classify, vanishing
+    from lk_tpu_torch.ops import blur, resize
+    from lk_tpu_torch.utils import Timer
+
+    frame = frames0[0]
+    cpu = frame.cpu()
+    results = []
+
+    def same(name, got, want, tol, note=""):
+        """got (card) against want (CPU); tol 0: torch.equal."""
+        got = [got] if torch.is_tensor(got) else list(got)
+        want = [want] if torch.is_tensor(want) else list(want)
+        check(len(got) == len(want), f"{name}: {len(got)} vs {len(want)}")
+        err = 0.0
+        for g, w in zip(got, want):
+            g = g.cpu()
+            check(g.shape == w.shape and g.dtype == w.dtype,
+                  f"{name}: {tuple(g.shape)} {g.dtype} vs {tuple(w.shape)} "
+                  f"{w.dtype}")
+            if g.dtype == torch.bool or not g.is_floating_point():
+                check(torch.equal(g, w), f"{name}: differs")
+                continue
+            check(bool(torch.isfinite(g).all()), f"{name}: non-finite")
+            err = max(err, float((g - w).abs().max()))
+            if tol == 0:
+                check(torch.equal(g, w), f"{name}: not equal (max|d| {err})")
+        check(err <= tol, f"{name}: max|d| {err} > {tol}")
+        results.append(f"{name} {'torch.equal' if tol == 0 else f'max|d| {err:.3g} (tol {tol:g}{note})'}")
+
+    torch.cuda.synchronize()
+    reset_counters()
+    got = ops.gaussian_pyramid(frame, 3)
+    torch.cuda.synchronize()
+    check(blur.kernel_launches == 1 and blur.plain_calls == 0,
+          f"gaussian_pyramid: {blur.kernel_launches} launches, "
+          f"{blur.plain_calls} plain calls")
+    same("gaussian_pyramid (1 launch)", got, ops.gaussian_pyramid(cpu, 3), 0)
+    # f32 products summed in another order on the card (TF32 off)
+    same(f"resize_linear {H}x{W} -> {H // 2}x{W // 2}",
+         ops.resize_linear(frame, H // 2, W // 2),
+         ops.resize_linear(cpu, H // 2, W // 2), 1e-3, ", matmul order")
+    same("imutils_width_resize -> 860 wide",
+         resize.imutils_width_resize(frame, 860),
+         resize.imutils_width_resize(cpu, 860), 1e-3, ", matmul order")
+    check(resize.linear_weights(1080, 540) is resize.linear_weights(1080, 540),
+          "linear_weights is not cached")
+    for c in ((960.4, 540.8), (3.3, 1.7), (-5.5, 1079.2)):
+        cen = torch.tensor(c, dtype=torch.float32)
+        same(f"extract_patch {c}", ops.extract_patch(frame, cen.to(frame.device),
+                                                     (15, 15)),
+             ops.extract_patch(cpu, cen, (15, 15)), 0)
+    ys, xs = np.mgrid[0:H, 0:W].astype(np.float32)
+    radial = np.stack([(xs - W / 2) * 0.01, (ys - H / 2) * 0.01], -1)
+    flow = torch.from_numpy(radial + np.random.default_rng(5).normal(
+        0, 0.3, radial.shape).astype(np.float32))
+    vp = torch.tensor([W / 2, H / 2], dtype=torch.float32)
+    valid = torch.from_numpy(np.random.default_rng(6).random((H, W)) < 0.9)
+    g = classify.classify_dense_flow(flow.to(frame.device),
+                                     vp.to(frame.device),
+                                     valid.to(frame.device))
+    w = classify.classify_dense_flow(flow, vp, valid)
+    # labels elementwise (correctly rounded sqrt and division on both);
+    # fractions are sums of 0/1 below 2**24 (exact); the mean speeds are
+    # reductions in another order: 1e-5 relative
+    same("classify_dense_flow labels and fractions",
+         (g.labels, g.frac_static, g.frac_away, g.frac_toward,
+          g.frac_lateral),
+         (w.labels, w.frac_static, w.frac_away, w.frac_toward,
+          w.frac_lateral), 0)
+    for k in ("mean_radial", "mean_tangential"):
+        a, b = float(getattr(g, k)), float(getattr(w, k))
+        check(abs(a - b) <= 1e-5 * abs(b) + 1e-7, f"{k}: {a} vs {b}")
+    results.append("classify_dense_flow mean speeds within 1e-5 relative")
+    pcfg = PipelineConfig()
+    rng = np.random.default_rng(7)
+    n = 8
+    t = np.float32(np.linspace(-1, 1, pcfg.vp_ref))
+    hist = np.stack([np.stack([430 + 40 * t + rng.normal(0, 2, t.shape),
+                               240 + 25 * t + rng.normal(0, 2, t.shape)], -1)
+                     for _ in range(n)]).astype(np.float32)
+    totals = np.array([0, 1, 2, 17, 299, 300, 301, 1000], np.int64)
+    state = vanishing.init_vp_state(pcfg, n, device="cpu")._replace(
+        hist_xy=torch.from_numpy(hist), hist_total=torch.from_numpy(totals),
+        vp_xy=torch.from_numpy(hist[:, 5].copy()),
+        vp_moved=torch.from_numpy(totals > 2))
+    on_card = vanishing.VPState(*(x.to(frame.device) for x in state))
+    (lp, rp, up, dp), ok = vanishing.vanishing_lines(on_card, pcfg, (860, 483))
+    (lp0, rp0, up0, dp0), ok0 = vanishing.vanishing_lines(state, pcfg,
+                                                          (860, 483))
+    check(torch.equal(ok.cpu(), ok0) and bool(ok0[3:].all())
+          and not bool(ok0[:3].any()), f"vanishing_lines ok {ok0.tolist()}")
+    for a, b in zip((lp, rp, up, dp), (lp0, rp0, up0, dp0)):
+        a = a.cpu()[ok0]
+        b = b[ok0]
+        check(bool(((a - b).abs() <= 1e-5 * b.abs() + 1e-3).all()),
+              f"vanishing_lines endpoints {a} vs {b}")
+    results.append("vanishing_lines (8 streams) ok equal, endpoints within "
+                   "1e-5 relative + 1e-3 px (regressions summed in another "
+                   "order)")
+    pad_cfg = dataclasses.replace(dcfg, padded_build=True)
+    torch.cuda.synchronize()
+    reset_counters()
+    with Timer() as t_pad:
+        padded = dense.dense_pyramidal_lk_video(frames0, cfg, pad_cfg)
+        torch.cuda.synchronize()
+    counts, plain = dense_counts()
+    check(plain == 0 and counts["pyr_down"] == VIDEO_PYRAMIDS,
+          f"padded_build video: launches {counts}, plain calls {plain}")
+    ref = dense.dense_pyramidal_lk_video(frames0, cfg, dcfg)
+    check(all(torch.equal(a, b) for a, b in zip(padded, ref)),
+          "the padded_build video differs from phase 4's video")
+    results.append(f"the 1080p video with padded_build == phase 4's video "
+                   f"(flow, min_eig, valid; {VIDEO_PYRAMIDS} pyramid "
+                   f"launches, Timer {t_pad.dt:.3f} s)")
+    for r in results:
+        print(f"[surface] {r}  [{card}]")
 
 
 # --------------------------------------------------------------------------
@@ -2525,6 +2743,12 @@ def main() -> int:
 
     # --- 9. per-pair timing --------------------------------------------------
     perpair_timing(frames0, cfg, card, profile)
+
+    # --- 25. the functions the port added last (here: the video's frames
+    # are still on the card) ----------------------------------------------
+    t0 = time.perf_counter()
+    surface_phase(frames0, cfg, dcfg, card)
+    print(f"[surface] phase 25 wall {time.perf_counter() - t0:.1f} s")
     del frames0, scenes, video_pair0
 
     # --- 10. serving scenes --------------------------------------------------
@@ -2647,7 +2871,8 @@ def main() -> int:
         app_launches=dict(app_launches, **t_launches,
                           serve=serve_launches["pyr_down"]),
         parallel_launches=par("pyr_down")))
-    path_of = {"local_warp": "B", "fused_lk_level_precomputed": "B"}
+    path_of = {"local_warp": "B", "fused_lk_level_precomputed": "B",
+               "local_warp_bf16": "B16"}
     for k in p_kernels:
         report["kernels"].append(dict(
             k, launches=p_launches[path_of[k["name"]]][k["name"]]))

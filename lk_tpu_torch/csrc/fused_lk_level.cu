@@ -46,7 +46,8 @@
 //
 // The design, point by point against what held the first version back (one
 // 32x32 block of 256 threads, 80 KB of shared memory, ~38 us of serial
-// latency per block, ~20x its floors):
+// latency per block, ~20x its floors, on an NVIDIA H100 80GB HBM3 at
+// 700.00 W):
 //  1. Block shape from the level.  The output block is a template (BH, BW):
 //     34x32 divides the 272x512 tiles of the finer 1080p levels and the
 //     136x256 top, so no block row runs half idle; a block still never
@@ -54,7 +55,8 @@
 //     writes only its tile's pixels).  17x32 blocks serve a level whose
 //     34x32 grid would leave most SMs idle (the top at K = 1: 32 blocks).
 //     34x64 blocks (1.8x halo, 111 KB, 2 blocks per SM) were measured
-//     slower at every 1080p level and dropped.
+//     slower at every 1080p level (NVIDIA H100 80GB HBM3, 700.00 W) and
+//     dropped.
 //  2. Shared memory: Ix, Iy and the residual alias the warp window, the five
 //     column-sum planes alias prev and the vertical warp pass, and coarse-in
 //     levels keep the coarse patch instead of flow planes: ~70 KB for 34x32
@@ -86,8 +88,8 @@
 //     the first version's 48x48 region was 2.25x (3x on its half-idle ninth
 //     block row).  Leaving out its first and last row and column, which no
 //     box sum reads, was measured no faster and was not kept.
-// Measured on an H100 at 1080p L0, K = 4 (chip_smoke.py phase 2): ~0.32 ms
-// against 1.32 ms before.  chip_smoke.py --profile also times two copies
+// Measured on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit, 1080p L0,
+// K = 4 (chip_smoke.py phase 2): ~0.32 ms against 1.32 ms before.  chip_smoke.py --profile also times two copies
 // of this file built for the measurement only (LK_FUSED_ANATOMY below): one
 // whose blocks return once their staging has landed, one without the
 // copies; they show whether the copies or the passes bound the kernel.

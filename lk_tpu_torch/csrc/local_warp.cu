@@ -5,17 +5,22 @@
 // residual beyond +-local of it clamped.
 //
 // Replaces the Pallas TPU kernel lk_tpu/flow/pallas_kernels.py
-// pallas_local_warp (_warp_kernel, _warp_core).  The plain PyTorch version is
-// lk_tpu_torch/flow/warp_kernels.py local_warp_reference; both compute the
-// warp of warp_tile.cuh with no halo, so they agree bit for bit.  The TPU
+// pallas_local_warp (_warp_kernel, _warp_core), for both of its window types:
+// `next` stored as f32, or as bf16 (window_dtype=bfloat16, the
+// bf16_warp_window option), where the selects and the lerp stay f32.  The
+// plain PyTorch version is lk_tpu_torch/flow/warp_kernels.py
+// local_warp_reference; both compute the warp of warp_tile.cuh with no halo,
+// so they agree bit for bit (a bf16 element widens to f32 exactly).  The TPU
 // kernel's aligned window DMA, lane and sublane rolls and power-of-two window
 // widths are TPU layout: here the window is staged by cp.async.
 //
 // What bounds it on this card: the compulsory traffic, next and the two flow
-// planes read once and the output written once, 16 B per pixel (1080p level
-// 0, 1088x1920: 33.4 MB, ~10 us at 3.35 TB/s), against ~30 f32 operations
-// per pixel: memory bound.  The window halo (2L + 1 rows and columns per
-// block) is re-read from L2.
+// planes read once and the output written once, 16 B per pixel with an f32
+// next (1080p level 0, 1088x1920: 33.4 MB, ~10 us at 3.35 TB/s), 14 B with a
+// bf16 one (~8.7 us), against ~30 f32 operations per pixel: memory bound.
+// The caller rounds next to bf16 once per level call, outside the kernel, as
+// lk_tpu pads and casts outside its own, so the kernel's read of next halves.
+// The window halo (2L + 1 rows and columns per block) is re-read from L2.
 //
 // Design: one block per (16, 32) piece of one reference tile (a block never
 // straddles two tiles, so it shares the tile's reference), 128 threads;
@@ -24,12 +29,18 @@
 // load it makes: the tile reference, then each thread's flow into
 // registers (the 8 fy of its vertical-pass column strip, the 4 fx of its
 // output column strip), then the (16 + 2L + 1) x (32 + 2L + 1) window of
-// next with cp.async (warp_tile.cuh stage: 16 B copies where the rows lie
-// inside the level and are aligned, 4 B by clamped address elsewhere).  The
-// vertical pass is one thread per (window column, 8 rows), walking down the
-// column; the horizontal pass one thread per (output column, 4 rows), a warp
-// per 32 columns, its stores coalesced and streaming (__stcs: the output is
-// not read again by this launch).
+// next with cp.async (warp_tile.cuh stage: 16 B copies, 4 floats or 8 bf16,
+// where the rows are aligned and the block's columns (a bf16 chunk's
+// columns) lie inside the level; elsewhere by clamped address, a 4 B
+// cp.async per float, or a bf16 chunk's 8 loads issued together).  The
+// window stays in next's storage type in shared memory and widens to f32
+// as it is read.  The vertical pass is one thread per (window column, 8
+// rows), walking down the column; the horizontal pass one thread per
+// (output column, 4 rows), a warp per 32 columns, its stores coalesced and
+// streaming (__stcs: the output is not read again by this launch).
+// Measured at path B's L0-L2 on an NVIDIA H100 80GB HBM3 at 700.00 W
+// (chip_smoke.py phase 6): the bf16 instances about as fast as the f32 ones
+// (21.1-21.3 against 20.8 us); at L1 and L2 the time is latency, not bytes.
 
 #include <cuda_runtime.h>
 
@@ -44,8 +55,10 @@ constexpr int RH = 4;    // output rows per thread of the horizontal pass
 constexpr int RV = 8;    // rows per thread of the vertical pass
 constexpr int NT = BW * BH / RH;  // threads per block
 
+// T: the storage type of next and of its window, float or __nv_bfloat16.
+template <typename T>
 struct Params {
-  const float* next;       // (H, W)
+  const T* next;           // (H, W)
   const float* fx;         // (H, W) flow planes
   const float* fy;
   float* out;              // (H, W)
@@ -53,16 +66,16 @@ struct Params {
   float max_disp;
 };
 
-template <int L>
+template <int L, typename T>
 __global__ void __launch_bounds__(NT)
-local_warp_kernel(Params p) {
+local_warp_kernel(Params<T> p) {
   constexpr int FW = BW + 2 * L + 1;           // window columns
   constexpr int WR = BH + 2 * L + 1;           // window rows
-  constexpr int WS = lkwarp::staged_stride(FW);
+  constexpr int WS = lkwarp::staged_stride<T>(FW);
   constexpr int NV = FW * (BH / RV);           // vertical-pass threads
   constexpr float two_l = 2.0f * L;
   static_assert(BH % RV == 0 && NV <= NT, "one vertical strip per thread");
-  __shared__ __align__(16) float sWin[WR * WS];  // window of next
+  __shared__ __align__(16) T sWin[WR * WS];      // window of next
   __shared__ float sV[BH * FW];                  // vertical pass
 
   const int tid = threadIdx.x;
@@ -100,8 +113,8 @@ local_warp_kernel(Params p) {
 
   const int wy0 = lkwarp::window_origin(ty0, rfy, D, L);
   const int wx0 = lkwarp::window_origin(tx0, rfx, D, L);
-  const float* sWo = sWin + lkwarp::stage<WR, FW, NT>(sWin, p.next, wy0 + rb,
-                                                      wx0 + cb, H, W);
+  const T* sWo = sWin + lkwarp::stage<WR, FW, NT>(sWin, p.next, wy0 + rb,
+                                                  wx0 + cb, H, W);
   lkwarp::cp_async_wait_all();
   __syncthreads();
 
@@ -129,26 +142,21 @@ local_warp_kernel(Params p) {
   }
 }
 
-template <int L>
-cudaError_t launch(const Params& p, const dim3& grid, cudaStream_t st) {
-  local_warp_kernel<L><<<grid, NT, 0, st>>>(p);
+template <int L, typename T>
+cudaError_t launch(const Params<T>& p, const dim3& grid, cudaStream_t st) {
+  local_warp_kernel<L, T><<<grid, NT, 0, st>>>(p);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launches one warp of an (H, W) level on `stream`; returns
-// cudaGetLastError() (0 = ok).  fx, fy: row-major (H, W) flow planes.
-int lk_local_warp_launch(const void* next, const void* fx, const void* fy,
-                         void* out, int H, int W, int tile_h, int tile_w,
-                         int local, float max_disp, void* stream) {
+template <typename T>
+int launch_level(const void* next, const void* fx, const void* fy, void* out,
+                 int H, int W, int tile_h, int tile_w, int local,
+                 float max_disp, void* stream) {
   if (local < 0 || local > MAX_LOCAL || tile_h < 1 || tile_w < 1 ||
       H % tile_h || W % tile_w)
     return (int)cudaErrorInvalidValue;
-  Params p;
-  p.next = static_cast<const float*>(next);
+  Params<T> p;
+  p.next = static_cast<const T*>(next);
   p.fx = static_cast<const float*>(fx);
   p.fy = static_cast<const float*>(fy);
   p.out = static_cast<float*>(out);
@@ -174,6 +182,29 @@ int lk_local_warp_launch(const void* next, const void* fx, const void* fy,
     default: return (int)launch<8>(p, grid, st);
   }
   static_assert(MAX_LOCAL == 8, "extend the dispatch");
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches one warp of an (H, W) level on `stream`; returns
+// cudaGetLastError() (0 = ok).  next: row-major (H, W) f32; fx, fy:
+// row-major (H, W) f32 flow planes.
+int lk_local_warp_launch(const void* next, const void* fx, const void* fy,
+                         void* out, int H, int W, int tile_h, int tile_w,
+                         int local, float max_disp, void* stream) {
+  return launch_level<float>(next, fx, fy, out, H, W, tile_h, tile_w, local,
+                             max_disp, stream);
+}
+
+// The same with next stored as bf16 (row-major (H, W) __nv_bfloat16).
+int lk_local_warp_bf16_launch(const void* next, const void* fx,
+                              const void* fy, void* out, int H, int W,
+                              int tile_h, int tile_w, int local,
+                              float max_disp, void* stream) {
+  return launch_level<__nv_bfloat16>(next, fx, fy, out, H, W, tile_h, tile_w,
+                                     local, max_disp, stream);
 }
 
 }  // extern "C"

@@ -27,9 +27,19 @@ numpy, ``levels_from_numpy``, puts its tensors on the card
 What the TPU layout needed and this port drops: the unified pad layouts
 (borders are read by clamped address, so levels stay unpadded), the
 alignment gate of the pyrDown pair kernel (the port's takes any shape) and
-the bf16 trades (``scharr_mxu``, ``fast_pyramid``, the MXU box sums): the
-port always computes the exact f32 form.  ``padded_build``,
-``bf16_box_sums`` and ``bf16_warp_window`` are not ported and raise.
+the bf16 trades inside the TPU kernels (``scharr_mxu``, ``fast_pyramid``,
+the MXU box sums): the port computes their exact f32 form.
+``padded_build`` builds the video's pyramid with no intermediate level
+copies; the port's one-launch build already does (the base pad folded in),
+so it runs that build and gives the same bits, and refuses, as ``lk_tpu``,
+without ``fast_pyramid``.
+
+The two bf16 options of the masked-iteration and precomputed-A levels are
+ported as ``lk_tpu`` applies them: ``bf16_box_sums`` takes the three A
+sums and the per-iteration b sums in bf16 (``box_sum(sum_dtype=)``), and
+``bf16_warp_window`` rounds ``next`` to bf16 once per level call for the
+local warp (``local_warp(window_dtype=)``; the precomputed-A level's warp
+stays f32).  The grads-fused level ignores both, as in ``lk_tpu``.
 """
 
 from __future__ import annotations
@@ -50,7 +60,10 @@ from lk_tpu_torch.ops.gradients import scharr_derivatives
 from lk_tpu_torch.ops.resize import upsample2_linear
 from lk_tpu_torch.ops.warp import shift_select_warp
 
-_LEFT_OUT = ("{} is not ported: ROADMAP.md 'Left out of the port'")
+# lk_tpu/flow/dense.py _build_levels_padded's assertion, word for word
+_PADDED_BUILD_NEEDS_FAST = (
+    "padded_build implements the fast (banded-matmul) decimation; "
+    "set fast_pyramid=True or padded_build=False")
 # OpenCV's fixed-point A is ours / 1024: its default minEigThreshold maps to
 # min_eig_threshold * 1024 on the normalized-gradient scale.
 _MIN_EIG_SCALE = 1024.0
@@ -153,9 +166,6 @@ def dense_lk_level(
                                   r_disp, coarse_planes_init, planes_out)
     if coarse_planes_init is not None or planes_out:
         raise ValueError("plane-layout I/O needs the grads-fused level")
-    if dense_cfg.bf16_box_sums or dense_cfg.bf16_warp_window:
-        raise NotImplementedError(_LEFT_OUT.format(
-            "bf16_box_sums / bf16_warp_window"))
     flow = flow_init.to(torch.float32).movedim(-1, 0)
     tiled = dense_cfg.use_pallas_warp or dense_cfg.use_pallas_fused
     if tiled:
@@ -165,8 +175,9 @@ def dense_lk_level(
 
     # the fused kernel's b sums see edge-replicated halos, so its A does too
     win = cfg.win_size
+    sums = torch.bfloat16 if dense_cfg.bf16_box_sums else torch.float32
     ix, iy, a11, a12, a22, min_eig, valid, inv_det = level_prologue(
-        prev, cfg, "edge" if dense_cfg.use_pallas_fused else "zero")
+        prev, cfg, "edge" if dense_cfg.use_pallas_fused else "zero", sums)
 
     if dense_cfg.use_pallas_fused:
         flow = fused_lk_level_precomputed(
@@ -177,17 +188,22 @@ def dense_lk_level(
         bound = float(r_disp)
         eps2 = cfg.eps * cfg.eps
         active = torch.ones_like(valid)
+        window = (torch.bfloat16 if dense_cfg.bf16_warp_window
+                  else torch.float32)
+        if dense_cfg.use_pallas_warp:        # rounded once per level call
+            next_ = next_.to(window)
         for _ in range(dense_cfg.outer_iters):
             if dense_cfg.use_pallas_warp:
                 jw = local_warp(next_, flow, max_disp=r_disp, tile_h=th,
-                                tile_w=tw, local=dense_cfg.warp_local)
+                                tile_w=tw, local=dense_cfg.warp_local,
+                                window_dtype=window)
             else:
                 jw = shift_select_warp(next_, flow.movedim(0, -1),
                                        (r_disp, r_disp))
             fx, fy = flow[0], flow[1]
             r = (jw - prev) - (ix * fx + iy * fy)
-            b1 = box_sum(ix * r, win) + a11 * fx + a12 * fy
-            b2 = box_sum(iy * r, win) + a12 * fx + a22 * fy
+            b1 = box_sum(ix * r, win, sum_dtype=sums) + a11 * fx + a12 * fy
+            b2 = box_sum(iy * r, win, sum_dtype=sums) + a12 * fx + a22 * fy
             du = (a12 * b2 - a22 * b1) * inv_det
             dv = (a12 * b1 - a11 * b2) * inv_det
             flow = torch.where(active & valid, flow + torch.stack([du, dv]),
@@ -197,16 +213,17 @@ def dense_lk_level(
                            min_eig=min_eig[:h0, :w0], valid=valid[:h0, :w0])
 
 
-def level_prologue(prev: torch.Tensor, cfg: LKConfig, border: str):
+def level_prologue(prev: torch.Tensor, cfg: LKConfig, border: str,
+                   sum_dtype: torch.dtype = torch.float32):
     """lk_tpu's XLA prologue of a level: Scharr (ix, iy) of prev, the
-    structure tensor (a11, a12, a22) as box sums with ``border``, min_eig
-    (over the window area), the gate ``valid`` and ``inv_det`` (0 where the
-    gate fails)."""
+    structure tensor (a11, a12, a22) as box sums with ``border`` taken in
+    ``sum_dtype``, min_eig (over the window area), the gate ``valid`` and
+    ``inv_det`` (0 where the gate fails)."""
     win = cfg.win_size
     ix, iy = scharr_derivatives(prev)
-    a11 = box_sum(ix * ix, win, border=border)
-    a12 = box_sum(ix * iy, win, border=border)
-    a22 = box_sum(iy * iy, win, border=border)
+    a11 = box_sum(ix * ix, win, border=border, sum_dtype=sum_dtype)
+    a12 = box_sum(ix * iy, win, border=border, sum_dtype=sum_dtype)
+    a22 = box_sum(iy * iy, win, border=border, sum_dtype=sum_dtype)
     det = a11 * a22 - a12 * a12
     t = a11 - a22
     min_eig = ((a22 + a11) - torch.sqrt(t * t + 4.0 * a12 * a12)) / (
@@ -343,13 +360,19 @@ def build_frame_levels(
 ) -> tuple:
     """Pyramid levels of a frame, or of a (N, H, W) stack of frames: the
     base edge-padded to ``pyramid_base_geometry``, then ``pyr_down`` per
-    level, as one ``build_pyramid`` call."""
-    if dense_cfg.padded_build:
-        raise NotImplementedError(_LEFT_OUT.format("padded_build"))
+    level, as one ``build_pyramid`` call.  That build materializes no
+    intermediate level, so ``padded_build`` changes nothing here."""
     cfg = _effective_cfg(cfg, dense_cfg, frame.shape[-2:])
     h_true, w_true = frame.shape[-2:]
     hp, wp = pyramid_base_geometry(h_true, w_true, cfg, dense_cfg)
     return build_pyramid(frame, cfg.max_level, (hp, wp))
+
+
+def _check_padded_build(dense_cfg: DenseLKConfig) -> None:
+    """The video plan's build refuses ``padded_build`` without
+    ``fast_pyramid``, where and as ``lk_tpu`` does."""
+    if dense_cfg.padded_build and not dense_cfg.fast_pyramid:
+        raise ValueError(_PADDED_BUILD_NEEDS_FAST)
 
 
 class _LevelPlan(NamedTuple):
@@ -522,6 +545,7 @@ def dense_flow_chunk_prepadded(
     top = cfg.max_level
     if len(plan) != top + 1:
         raise ValueError(f"{len(plan)}-level plan for max_level {top}")
+    _check_padded_build(dense_cfg)
     stacks = build_frame_levels(frames_chunk, cfg, dense_cfg)
     for st, p in zip(stacks, plan):
         if tuple(st.shape[1:]) != (p.h, p.w):
@@ -576,8 +600,6 @@ def dense_pyramidal_lk_video(
     if frames.ndim != 3 or frames.shape[0] < 2:
         raise ValueError(f"frames must be (T >= 2, H, W), got "
                          f"{tuple(frames.shape)}")
-    if dense_cfg.padded_build:
-        raise NotImplementedError(_LEFT_OUT.format("padded_build"))
     h_true, w_true = frames.shape[-2:]
     hw = (h_true, w_true)
     cfg = _effective_cfg(cfg, dense_cfg, hw)
@@ -621,6 +643,8 @@ def dense_pyramidal_lk_video(
                 true_hw=hw)
             if warm_plan is None:      # lk_tpu falls back to the per-call
                 plan = None            # chain for the whole warm video
+    if plan is not None:
+        _check_padded_build(dense_cfg)
     levels = build_frame_levels(frames[0], cfg, dense_cfg)
     results = []
     seed = None

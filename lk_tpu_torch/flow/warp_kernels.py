@@ -6,7 +6,9 @@ Counterparts of two Pallas makers of ``lk_tpu/flow/pallas_kernels.py``:
 * ``pallas_local_warp`` -> ``local_warp``: the standalone tile-reference
   bilinear warp of a level, used by the warp-only level
   (``DenseLKConfig(use_pallas_warp=True)``, levels below
-  ``fused_from_iters``);
+  ``fused_from_iters``), with ``next`` stored as f32 or, as
+  ``window_dtype=bfloat16`` asks (``bf16_warp_window``), rounded once to
+  bf16 while the arithmetic stays f32;
 * ``make_fused_lk_level`` -> ``fused_lk_level_precomputed``: ``n_iters``
   IC iterations on a precomputed prev / ix / iy / A / inv_det
   (``fused_grads_in_kernel=False``), Jacobi across tiles, no eps freeze;
@@ -44,13 +46,24 @@ from lk_tpu_torch.flow.lk_kernels import (HALO, MAX_LOCAL, _box,
                                           _flow_planes, warp_region)
 
 # Kernel launches (one per call of each: the level runs all its iterations
-# in one launch) and calls of the plain versions.
+# in one launch) and calls of the plain versions; the local warp's launches
+# also by the storage type of its window.
 kernel_launches = {"local_warp": 0, "fused_lk_level_precomputed": 0}
 plain_calls = {"local_warp": 0, "fused_lk_level_precomputed": 0}
+local_warp_launches_by_window = {"float32": 0, "bfloat16": 0}
+
+# The local warp's default tile and residual range (pallas_kernels.py's
+# TILE_H, TILE_W, LOCAL).
+TILE_H, TILE_W, LOCAL = 64, 384, 6
+
+# Storage types of the local warp's next plane (its window), and the C
+# function that launches the kernel's instance for each.
+WINDOW_DTYPES = {torch.float32: "lk_local_warp_launch",
+                 torch.bfloat16: "lk_local_warp_bf16_launch"}
 
 
 def reset_counters() -> None:
-    for d in (kernel_launches, plain_calls):
+    for d in (kernel_launches, plain_calls, local_warp_launches_by_window):
         for k in d:
             d[k] = 0
 
@@ -62,17 +75,22 @@ def right_spill(tile_w: int) -> int:
     return min(HALO, -(-tile_w // 128) * 128 - tile_w)
 
 
-def _check_planes(named, h, w, dev):
+def _check_planes(named, h, w, dev, dtype=torch.float32):
     for name, t in named:
         if tuple(t.shape[-2:]) != (h, w):
             raise ValueError(f"{name} {tuple(t.shape)} is not (..., {h}, {w})")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        want = dtype if name == "next" else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want}, got {t.dtype}")
         if t.device != dev:
             raise ValueError(f"{name} on {t.device}, expected {dev}")
 
 
-def _check_level(nxt, flow, tile_h, tile_w, local, planes=()):
+def _check_level(nxt, flow, tile_h, tile_w, local, planes=(),
+                 window_dtype=torch.float32):
+    if window_dtype not in WINDOW_DTYPES:
+        raise TypeError(f"window_dtype {window_dtype} is not one of "
+                        f"{tuple(WINDOW_DTYPES)}")
     if nxt.ndim != 2:
         raise ValueError(f"next must be (H, W), got {tuple(nxt.shape)}")
     h, w = nxt.shape
@@ -85,7 +103,7 @@ def _check_level(nxt, flow, tile_h, tile_w, local, planes=()):
     if not 0 <= local <= MAX_LOCAL:
         raise ValueError(f"local {local} outside 0..{MAX_LOCAL}")
     _check_planes((("next", nxt), ("flow", flow)) + tuple(planes), h, w,
-                  nxt.device)
+                  nxt.device, window_dtype)
 
 
 def _dispatch(t: torch.Tensor, name: str) -> bool:
@@ -101,35 +119,51 @@ def _dispatch(t: torch.Tensor, name: str) -> bool:
 # local warp
 # ---------------------------------------------------------------------------
 
-def local_warp(nxt: torch.Tensor, flow: torch.Tensor, *, max_disp: int,
-               tile_h: int, tile_w: int, local: int) -> torch.Tensor:
+def local_warp(nxt: torch.Tensor, flow: torch.Tensor, *, max_disp: int = 32,
+               tile_h: int = TILE_H, tile_w: int = TILE_W, local: int = LOCAL,
+               window_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """out(p) = next(p + clip(flow(p), +-max_disp)), separable bilinear,
     per tile around its reference displacement, the residual beyond
-    +-local clamped.  nxt: (H, W); flow: (2, H, W).  Returns (H, W)."""
+    +-local clamped.  nxt: (H, W); flow: (2, H, W).  Returns (H, W) f32.
+
+    ``next`` is read as ``window_dtype`` (float32 or bfloat16): a plane of
+    another type is cast first, so a caller that warps one plane several
+    times casts it once itself.  A bf16 plane rounds the intensities once
+    (by <= 0.5 on 0..255); every operation of the warp stays f32."""
     if not _dispatch(nxt, "local_warp"):
         return local_warp_reference(nxt, flow, max_disp=max_disp,
-                                    tile_h=tile_h, tile_w=tile_w, local=local)
+                                    tile_h=tile_h, tile_w=tile_w, local=local,
+                                    window_dtype=window_dtype)
     from lk_tpu_torch import _build
 
-    _check_level(nxt, flow, tile_h, tile_w, local)
+    nxt = nxt.to(window_dtype)
+    _check_level(nxt, flow, tile_h, tile_w, local, window_dtype=window_dtype)
     lib = _build.library()
     nxt, flow = nxt.contiguous(), flow.contiguous()
     h, w = nxt.shape
     out = torch.empty((h, w), dtype=torch.float32, device=nxt.device)
-    _build.launch(lib.lk_local_warp_launch, nxt, "local_warp",
-                  nxt.data_ptr(), flow[0].data_ptr(), flow[1].data_ptr(),
-                  out.data_ptr(), h, w, tile_h, tile_w, local,
-                  float(max_disp))
+    _build.launch(getattr(lib, WINDOW_DTYPES[window_dtype]), nxt,
+                  "local_warp", nxt.data_ptr(), flow[0].data_ptr(),
+                  flow[1].data_ptr(), out.data_ptr(), h, w, tile_h, tile_w,
+                  local, float(max_disp))
     kernel_launches["local_warp"] += 1
+    local_warp_launches_by_window[str(window_dtype).removeprefix("torch.")] \
+        += 1
     return out
 
 
 def local_warp_reference(nxt: torch.Tensor, flow: torch.Tensor, *,
-                         max_disp: int, tile_h: int, tile_w: int,
-                         local: int) -> torch.Tensor:
-    """Plain PyTorch form of ``local_warp``: ``warp_region`` per tile."""
-    _check_level(nxt, flow, tile_h, tile_w, local)
+                         max_disp: int = 32, tile_h: int = TILE_H,
+                         tile_w: int = TILE_W, local: int = LOCAL,
+                         window_dtype: torch.dtype = torch.float32
+                         ) -> torch.Tensor:
+    """Plain PyTorch form of ``local_warp``: ``next`` cast to
+    ``window_dtype`` and back to f32 (exact), then ``warp_region`` per
+    tile."""
+    nxt = nxt.to(window_dtype)
+    _check_level(nxt, flow, tile_h, tile_w, local, window_dtype=window_dtype)
     plain_calls["local_warp"] += 1
+    nxt = nxt.to(torch.float32)
     h, w = nxt.shape
     dev = nxt.device
     bound = float(max_disp)
@@ -272,12 +306,14 @@ def bind(lib: ctypes.CDLL) -> None:
     """Declare the C interfaces of ``csrc/local_warp.cu`` and
     ``csrc/fused_level_pre.cu``."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.lk_local_warp_launch.argtypes = [
-        p, p, p, p,            # next, fx, fy, out
-        i, i, i, i, i,         # H, W, tile_h, tile_w, local
-        f, p,                  # max_disp, stream
-    ]
-    lib.lk_local_warp_launch.restype = i
+    for name in WINDOW_DTYPES.values():    # next f32 or bf16
+        fn = getattr(lib, name)
+        fn.argtypes = [
+            p, p, p, p,            # next, fx, fy, out
+            i, i, i, i, i,         # H, W, tile_h, tile_w, local
+            f, p,                  # max_disp, stream
+        ]
+        fn.restype = i
     lib.lk_fused_level_pre_launch.argtypes = [
         p, p, p, p, p, p, p, p,    # next, prev, ix, iy, a11, a12, a22, inv_det
         p, p, p,                   # init, buf0, buf1

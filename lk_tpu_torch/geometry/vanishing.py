@@ -1,6 +1,7 @@
 """The vanishing-point state machine over a batch of streams: counterpart of
 ``lk_tpu.geometry.vanishing`` (``VPState``, ``init_vp_state``,
-``process_frame_pairs``, ``vp_show_step``), with its quirks:
+``process_frame_pairs``, ``vp_show_step``, ``vanishing_lines``), with its
+quirks:
 
 * the VP can update once per accepted cross point, each update reading the
   ring of the last ``vp_ref_num`` CPs including the one just appended, so
@@ -11,7 +12,9 @@
   ``vp_init_aliasing`` the ring entry appended last reads as the current VP
   until it leaves the window (LK_Final.py:617-624);
 * hide/reset after ``hide_vp_thold`` frames without an update;
-* cross points that compute to nan are rejected.
+* cross points that compute to nan are rejected;
+* vanishing lines: x->y and y->x least squares over the VP-history ring
+  (scipy.stats.linregress in the reference, LK_Final.py:219-238).
 
 Every leaf of ``VPState`` has a leading stream axis (B, ...).  The pair
 scan is sequential per stream: ``process_frame_pairs`` walks the candidate
@@ -220,3 +223,38 @@ def vp_show_step(state: VPState, out: FrameGeomOut, cfg: PipelineConfig
     )
     return new_state, out._replace(show_row=state.vp_xy, show_mask=show,
                                    vp_hidden=hide)
+
+
+def vanishing_lines(state: VPState, cfg: PipelineConfig,
+                    frame_size: Tuple[int, int]):
+    """Vanishing-line endpoints through each stream's VP (reference
+    LK_Final.py:219-238).
+
+    Returns ((lp, rp, up, dp), ok), each endpoint (B, 2) and ok (B,):
+    lp/rp from the x->y regression over the valid history slots, extended
+    to the left/right frame borders through the VP; up/dp from the y->x
+    regression to the top/bottom borders.  ok: the VP has moved and both
+    slopes are finite (lk_tpu's reading of the reference's ``best_point``
+    mode)."""
+    width, height = frame_size
+    _, valid = _ring_slots(state.hist_total, cfg.vp_ref)
+    w = valid.to(torch.float32)
+    m_count = valid.sum(dim=1).clamp(min=1).to(torch.float32)
+    xs, ys = state.hist_xy[..., 0], state.hist_xy[..., 1]
+    mx = (xs * w).sum(dim=1) / m_count
+    my = (ys * w).sum(dim=1) / m_count
+    dx, dy = xs - mx[:, None], ys - my[:, None]
+    cov = (dx * dy * w).sum(dim=1)
+    varx = (dx ** 2 * w).sum(dim=1)
+    vary = (dy ** 2 * w).sum(dim=1)
+    slope = cov / varx           # x -> y
+    slope_v = cov / vary         # y -> x
+    bx, by = state.vp_xy[:, 0], state.vp_xy[:, 1]
+    zero, right, bottom = (torch.full_like(bx, v)
+                           for v in (0.0, width - 1.0, height - 1.0))
+    lp = torch.stack([zero, by - bx * slope], -1)
+    rp = torch.stack([right, by + ((width - 1) - bx) * slope], -1)
+    up = torch.stack([bx - by * slope_v, zero], -1)
+    dp = torch.stack([bx + ((height - 1) - by) * slope_v, bottom], -1)
+    ok = state.vp_moved & torch.isfinite(slope) & torch.isfinite(slope_v)
+    return (lp, rp, up, dp), ok

@@ -1,6 +1,6 @@
 """Gaussian smoothing and the pyramid step: counterpart of
 ``lk_tpu.ops.blur`` (``_sep_filter_axis``, ``sep_filter2d``,
-``gaussian_blur3``, ``pyr_down``).
+``gaussian_blur3``, ``pyr_down``, ``gaussian_pyramid``).
 
 Small separable stencils are f32 shifted adds over a REFLECT_101-padded
 axis, the taps summed in order: ``((x[-1]*t0 + x[0]*t1) + x[1]*t2)``.
@@ -146,6 +146,14 @@ def build_pyramid(frames: torch.Tensor, n_levels: int,
         raise ValueError(f"build_pyramid: unsupported device "
                          f"{frames.device}")
     return _pyramid_cuda(frames, n_levels, pad_hw)
+
+
+def gaussian_pyramid(img: torch.Tensor, max_level: int) -> list:
+    """List of max_level + 1 float32 images, level 0 the input
+    (cv.buildOpticalFlowPyramid), each level pyrDown of the one before.
+    One ``build_pyramid`` call: on the card one launch of the pyramid
+    kernel for every level, bit-equal to pyrDown level by level."""
+    return list(build_pyramid(img, max_level))
 
 
 def build_pyramid_reference(frames: torch.Tensor, n_levels: int,

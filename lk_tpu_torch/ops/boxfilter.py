@@ -3,6 +3,13 @@
 Two separable shifted-add passes, rows then columns, the taps added in
 order, over an axis padded with zeros ("zero"), BORDER_REFLECT_101
 ("reflect") or edge replication ("edge").
+
+``sum_dtype=torch.bfloat16`` pads and adds in bf16: every add rounds to
+bf16, the last one of each pass too, as ``lk_tpu``'s ``box_sum`` does when
+called op by op.  Under ``jax.jit`` XLA may keep the last add of the
+column pass in f32 (excess precision); the port does not model that, and
+differs from such a result by that one rounding, at most 2**-8 of the sum
+(tests/test_torch_bf16.py pins both).
 """
 
 from __future__ import annotations
@@ -36,12 +43,14 @@ def _pad_axis(a: torch.Tensor, before: int, after: int, axis: int,
     return a.index_select(axis, idx)
 
 
-def box_sum(x: torch.Tensor, win: Tuple[int, int],
-            border: str = "zero") -> torch.Tensor:
+def box_sum(x: torch.Tensor, win: Tuple[int, int], border: str = "zero",
+            sum_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """SAME windowed sum over the trailing (H, W) axes; ``win`` is
-    (win_w, win_h) in OpenCV order.  Output float32."""
+    (win_w, win_h) in OpenCV order.  The sums are taken in ``sum_dtype``
+    and cast back to x's float dtype (float32 for integer input)."""
     win_w, win_h = win
-    x = x.to(torch.float32)
+    out_dtype = x.dtype if x.is_floating_point() else torch.float32
+    x = x.to(sum_dtype)
 
     def axis_sum(a, k, axis):
         n = a.shape[axis]
@@ -52,4 +61,5 @@ def box_sum(x: torch.Tensor, win: Tuple[int, int],
             out = term if out is None else out + term
         return out
 
-    return axis_sum(axis_sum(x, win_h, x.ndim - 2), win_w, x.ndim - 1)
+    return axis_sum(axis_sum(x, win_h, x.ndim - 2), win_w,
+                    x.ndim - 1).to(out_dtype)

@@ -1,5 +1,12 @@
 """Resampling: counterpart of ``lk_tpu.ops.resize`` (``area_weights``,
-``resize_area``, ``upsample2_linear``)."""
+``linear_weights``, ``resize_area``, ``resize_linear``,
+``upsample2_linear``, ``imutils_width_resize``).
+
+The two resizes are f32 products with per-axis weight matrices,
+``Wy @ img @ Wx^T`` (columns first, as ``lk_tpu``): ``torch.matmul``, no
+kernel of the port's own, as ``lk_tpu`` leaves them to XLA.  The caller
+keeps TF32 off (``torch.backends.cuda.matmul.allow_tf32``, False by
+default): resize feeds sub-pixel tracking."""
 
 from __future__ import annotations
 
@@ -22,17 +29,48 @@ def area_weights(n_src: int, n_dst: int) -> np.ndarray:
     return w
 
 
-def resize_area(img: torch.Tensor, dst_h: int, dst_w: int) -> torch.Tensor:
-    """INTER_AREA resize of the trailing (H, W) axes as two f32 matmuls,
-    ``Wy @ img @ Wx^T`` (columns first, as ``lk_tpu``).  The caller keeps
-    TF32 off (``torch.backends.cuda.matmul.allow_tf32``, False by
-    default): resize feeds sub-pixel tracking."""
-    h, w = img.shape[-2], img.shape[-1]
+@functools.lru_cache(maxsize=64)
+def linear_weights(n_src: int, n_dst: int) -> np.ndarray:
+    """(n_dst, n_src) INTER_LINEAR weights with half-pixel centers."""
+    w = np.zeros((n_dst, n_src), dtype=np.float32)
+    scale = n_src / n_dst
+    for d in range(n_dst):
+        x = (d + 0.5) * scale - 0.5
+        x0 = int(np.floor(x))
+        f = x - x0
+        a = min(max(x0, 0), n_src - 1)
+        b = min(max(x0 + 1, 0), n_src - 1)
+        w[d, a] += 1.0 - f
+        w[d, b] += f
+    return w
+
+
+def _apply_sep(img: torch.Tensor, wy: np.ndarray,
+               wx: np.ndarray) -> torch.Tensor:
     dev = img.device
-    wy = torch.from_numpy(area_weights(h, dst_h)).to(dev)
-    wx = torch.from_numpy(area_weights(w, dst_w)).to(dev)
-    y = torch.matmul(img.to(torch.float32), wx.T)
-    return torch.matmul(wy, y)
+    y = torch.matmul(img.to(torch.float32), torch.from_numpy(wx).to(dev).T)
+    return torch.matmul(torch.from_numpy(wy).to(dev), y)
+
+
+def resize_area(img: torch.Tensor, dst_h: int, dst_w: int) -> torch.Tensor:
+    """INTER_AREA resize of the trailing (H, W) axes (module docstring)."""
+    h, w = img.shape[-2], img.shape[-1]
+    return _apply_sep(img, area_weights(h, dst_h), area_weights(w, dst_w))
+
+
+def resize_linear(img: torch.Tensor, dst_h: int, dst_w: int) -> torch.Tensor:
+    """INTER_LINEAR resize of the trailing (H, W) axes (module
+    docstring)."""
+    h, w = img.shape[-2], img.shape[-1]
+    return _apply_sep(img, linear_weights(h, dst_h),
+                      linear_weights(w, dst_w))
+
+
+def imutils_width_resize(img: torch.Tensor, width: int) -> torch.Tensor:
+    """Aspect-preserving INTER_AREA resize to ``width`` with imutils'
+    height, ``int(h * (width / float(w)))`` (LK_Final.py:429)."""
+    h, w = img.shape[-2], img.shape[-1]
+    return resize_area(img, int(h * (width / float(w))), width)
 
 
 def _up_axis(x: torch.Tensor, dst: int, dim: int) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """Bilinear sampling and warping: counterpart of ``lk_tpu.ops.warp``
-(``bilinear_sample``, ``warp_by_flow``, ``shift_select_warp``).
+(``bilinear_sample``, ``warp_by_flow``, ``shift_select_warp``,
+``extract_patch``).
 
 ``bilinear_sample`` / ``warp_by_flow`` are the 2-D gather warp, the oracle
 lk_tpu's warp tests hold its kernels to.  ``shift_select_warp`` is the dense
@@ -86,3 +87,39 @@ def shift_select_warp(img: torch.Tensor, flow: torch.Tensor,
     x = img.to(torch.float32)
     tmp = _shift_axis(x, flow[..., 1], ry, axis=-2)      # vertical first
     return _shift_axis(tmp, flow[..., 0], rx, axis=-1)
+
+
+def extract_patch(img: torch.Tensor, center: torch.Tensor,
+                  win: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear (win_h, win_w) patch of img (H, W) around the float
+    ``center`` = (x, y): integer offsets -half .. +half from the sub-pixel
+    centre, the OpenCV LK window whose top-left is center - halfWin.
+
+    A (win_h + 1, win_w + 1) slice and a 4-tap blend, as ``lk_tpu``.  The
+    slice start follows ``lax.dynamic_slice``: a negative start counts from
+    the end, as a Python index does, then the start is clamped to
+    [0, H - win_h - 1] x [0, W - win_w - 1]; the blend fractions come from
+    the unclamped corner.  So a corner left of (above) the image takes its
+    slice from the right (bottom) part; callers gate validity separately.
+    The start is computed on the device, with no host read."""
+    win_w, win_h = win
+    h, w = img.shape
+    x0f = center[0] - (win_w - 1) * 0.5
+    y0f = center[1] - (win_h - 1) * 0.5
+    x0 = torch.floor(x0f)
+    y0 = torch.floor(y0f)
+    fx = (x0f - x0).to(img.dtype)
+    fy = (y0f - y0).to(img.dtype)
+    def start(c, n, size):
+        c = c.to(torch.int64)
+        c = torch.where(c < 0, c + n, c).clamp(0, n - size)
+        return c + torch.arange(size, device=img.device)
+
+    ys = start(y0, h, win_h + 1)
+    xs = start(x0, w, win_w + 1)
+    raw = img[ys[:, None], xs[None, :]]
+    a, b = raw[:-1, :-1], raw[:-1, 1:]
+    c, d = raw[1:, :-1], raw[1:, 1:]
+    top = a + fx * (b - a)
+    bot = c + fx * (d - c)
+    return top + fy * (bot - top)

@@ -1,2 +1,4 @@
 """Utilities: state checkpoints, profiling (FPS meter, spans, device
-traces)."""
+traces) and the wall-clock ``Timer``; counterpart of ``lk_tpu.utils``."""
+
+from lk_tpu_torch.utils.runtime import Timer  # noqa: F401

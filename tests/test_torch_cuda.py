@@ -477,6 +477,46 @@ def test_local_warp_matches_plain(cuda_device, case):
     assert torch.equal(got, want)
 
 
+# The bf16-window local warp (bf16_warp_window): path B's levels 0-2 at
+# 1080p (local 3, 4, 5), and the staging's element-by-element path: a
+# width that is no multiple of 8 bf16, and a base 2 bytes off alignment.
+LOCAL_WARP_BF16_CASES = {
+    "l0_1080p": ((1088, 1920), (64, 384), 3, 32, 0),
+    "l1_1080p": ((576, 1024), (64, 512), 4, 16, 0),
+    "l2_1080p": ((320, 480), (64, 480), 5, 8, 0),
+    "width_not_8": ((40, 100), (40, 50), 4, 16, 0),
+    "unaligned": ((128, 768), (64, 384), 5, 32, 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(LOCAL_WARP_BF16_CASES))
+def test_local_warp_bf16_matches_plain(cuda_device, case):
+    """The local warp's bf16-window instances: bit-equal to the plain
+    version (next rounded to bf16, f32 arithmetic) and to the f32 kernel
+    on the rounded plane; one launch per call, counted as bf16."""
+    (h, w), tile, local, disp, offset = LOCAL_WARP_BF16_CASES[case]
+    img = _frames(1, h, w, cuda_device)[0].to(torch.bfloat16)
+    nxt = torch.empty(h * w + offset, dtype=torch.bfloat16,
+                      device=cuda_device)[offset:].view(h, w)
+    nxt.copy_(img)
+    assert nxt.data_ptr() % 16 == 2 * offset
+    flow = _zoom_flow(h, w, cuda_device)
+    kw = dict(max_disp=disp, tile_h=tile[0], tile_w=tile[1], local=local,
+              window_dtype=torch.bfloat16)
+    wk.reset_counters()
+    got = wk.local_warp(nxt, flow, **kw)
+    assert wk.kernel_launches["local_warp"] == 1
+    assert wk.local_warp_launches_by_window == {"float32": 0, "bfloat16": 1}
+    assert sum(wk.plain_calls.values()) == 0
+    want = wk.local_warp_reference(nxt, flow, **kw)
+    f32 = wk.local_warp(nxt.to(torch.float32), flow, **dict(
+        kw, window_dtype=torch.float32))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, f32)
+
+
 # (level h, w), (tile h, w), n_iters, local
 PRE_CASES = {
     "top_1080p": ((136, 240), (136, 240), 6, 5),   # path B's top, spill 8

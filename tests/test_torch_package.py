@@ -1,8 +1,9 @@
 """lk_tpu_torch as a package: nothing of JAX, lk_tpu, OpenCV or
-matplotlib at import, its own configs and presets equal to lk_tpu's, the
-apps' dispatcher, the unported branch refuses and the
-single-stream step runs, the entry point holds lk_tpu's flagship program,
-and chip_smoke.py refuses to run without a GPU."""
+matplotlib at import, its own configs and presets equal to lk_tpu's, every
+public name of lk_tpu in its counterpart module (or excused with a reason),
+the apps' dispatcher, padded_build accepted and the single-stream step
+runs, the entry point holds lk_tpu's flagship program, and chip_smoke.py
+refuses to run without a GPU."""
 
 import dataclasses
 import os
@@ -47,7 +48,8 @@ PORT_MODULES = (
     "lk_tpu_torch.io.prefetch", "lk_tpu_torch.io.sink",
     "lk_tpu_torch.io.video", "lk_tpu_torch.io.raw", "lk_tpu_torch.io.native",
     "lk_tpu_torch.geometry.hough", "lk_tpu_torch.ops.homography",
-    "lk_tpu_torch.utils.profiling", "lk_tpu_torch.viz",
+    "lk_tpu_torch.utils.profiling", "lk_tpu_torch.utils.runtime",
+    "lk_tpu_torch.viz",
     "lk_tpu_torch.apps", "lk_tpu_torch.apps.__main__",
     "lk_tpu_torch.apps._common", "lk_tpu_torch.apps.final",
     "lk_tpu_torch.apps.vp_detect", "lk_tpu_torch.apps.classify",
@@ -72,6 +74,139 @@ def test_import_pulls_no_jax():
             "print(bad); sys.exit(1 if bad else 0)")
     proc = _run(["-c", code], REPO)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# lk_tpu's public names that the port does not have, each with its reason
+# (ROADMAP.md "Left out of the port"): JAX-only, or a workaround for Mosaic,
+# the compiler of the TPU kernels.
+LEFT_OUT = {
+    "lk_tpu.utils.runtime.enable_compilation_cache":
+        "JAX's persistent compile cache; the port caches its compiled "
+        "kernels in lk_tpu_torch/_build (lk_tpu_torch._build)",
+    "lk_tpu.utils.enable_compilation_cache":
+        "re-export of utils.runtime.enable_compilation_cache",
+    "lk_tpu.ops.boxfilter.box_sum_matmul":
+        "Mosaic workaround: the box sums as banded MXU matmuls",
+    "lk_tpu.ops.blur.pyr_down_padded":
+        "Mosaic workaround: decimation into the unified pad layout, which "
+        "the port drops (levels stay unpadded, borders read by clamped "
+        "address)",
+    "lk_tpu.flow.dense.build_frame_levels_prepadded":
+        "Mosaic workaround: the levels padded into the unified pad layout; "
+        "the port's video carries unpadded levels from build_frame_levels",
+    "lk_tpu.flow.pallas_kernels.pallas_pyr_down_one":
+        "the N = 1 form of the pyrDown kernel: build_pyramid launches any "
+        "number of planes",
+    "lk_tpu.flow.pallas_kernels.pyr_pair_supported":
+        "Mosaic-only: the pyrDown pair kernel's alignment gate; "
+        "build_pyramid takes any shape",
+}
+# lk_tpu's modules of Pallas TPU kernels: each public name and the port's
+# counterpart (module.attribute).
+PALLAS_MAP = {
+    "lk_tpu.flow.pallas_kernels": {
+        "make_fused_lk_level_grads_resident_batched":
+            "lk_tpu_torch.flow.lk_kernels.fused_lk_level",
+        "make_fused_lk_level_grads_batched":
+            "lk_tpu_torch.flow.lk_kernels.fused_lk_level",
+        "make_fused_lk_level_grads_resident":
+            "lk_tpu_torch.flow.lk_kernels.fused_lk_level",
+        "make_fused_lk_level_grads":
+            "lk_tpu_torch.flow.lk_kernels.fused_lk_level",
+        "make_fused_lk_level":
+            "lk_tpu_torch.flow.warp_kernels.fused_lk_level_precomputed",
+        "pallas_local_warp": "lk_tpu_torch.flow.warp_kernels.local_warp",
+        "pallas_pyr_down_pair": "lk_tpu_torch.ops.blur.build_pyramid",
+        "make_frame_band_gather": "lk_tpu_torch.flow.sparse.gather_windows",
+        "make_point_window_gather": "lk_tpu_torch.flow.sparse.gather_windows",
+        "pick_tile_w": "lk_tpu_torch.flow.lk_kernels.pick_tile_w",
+        "unified_pad_geometry":
+            "lk_tpu_torch.flow.dense._unified_pad_geometry",
+        "TILE_H": "lk_tpu_torch.flow.warp_kernels.TILE_H",
+        "TILE_W": "lk_tpu_torch.flow.warp_kernels.TILE_W",
+        "LOCAL": "lk_tpu_torch.flow.warp_kernels.LOCAL",
+    },
+    "lk_tpu.ops.pallas_finish": {
+        "fused_finish": "lk_tpu_torch.ops.finish.fused_finish",
+    },
+}
+
+
+def _lk_tpu_modules():
+    """Dotted names of every module and package of lk_tpu (from its
+    files: nothing is imported)."""
+    root = os.path.join(REPO, "lk_tpu")
+    out = []
+    for dirpath, _, files in os.walk(root):
+        for f in sorted(files):
+            if not f.endswith(".py"):
+                continue
+            rel = os.path.relpath(os.path.join(dirpath, f), REPO)[:-3]
+            parts = rel.split(os.sep)
+            if parts[-1] == "__init__":
+                parts = parts[:-1]
+            out.append(".".join(parts))
+    return sorted(out)
+
+
+def _public_names(module: str) -> list:
+    """A module's public surface, read from its source: its top-level
+    functions, classes and assignments, and for a package the names its
+    __init__ imports; names beginning with "_" are private."""
+    import ast
+
+    path = os.path.join(REPO, *module.split("."))
+    path = (os.path.join(path, "__init__.py") if os.path.isdir(path)
+            else path + ".py")
+    tree = ast.parse(open(path).read())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets
+                         if isinstance(t, ast.Name))
+        elif (path.endswith("__init__.py")
+              and isinstance(node, ast.ImportFrom)
+              and node.module != "__future__"):
+            names.update(a.asname or a.name for a in node.names)
+    return sorted(n for n in names if not n.startswith("_"))
+
+
+def _port_attr(dotted: str) -> bool:
+    import importlib
+
+    module, _, name = dotted.rpartition(".")
+    return hasattr(importlib.import_module(module), name)
+
+
+@pytest.mark.parametrize("module", _lk_tpu_modules())
+def test_surface_parity(module):
+    """Every public name of an lk_tpu module or subpackage exists in the
+    port's module of the same path (for the Pallas kernel modules, at its
+    PALLAS_MAP counterpart), or is excused in LEFT_OUT; no excuse is
+    stale."""
+    names = _public_names(module)
+    missing = []
+    for name in names:
+        full = f"{module}.{name}"
+        if module in PALLAS_MAP:
+            port = PALLAS_MAP[module].get(name)
+            if full in LEFT_OUT:
+                assert port is None, full
+            elif port is None or not _port_attr(port):
+                missing.append(f"{full} -> {port}")
+            continue
+        port = "lk_tpu_torch" + full[len("lk_tpu"):]
+        if full in LEFT_OUT:
+            assert not _port_attr(port), f"{full} is ported: drop LEFT_OUT"
+        elif not _port_attr(port):
+            missing.append(full)
+    assert not missing, missing
+    for full in LEFT_OUT:
+        if full.rpartition(".")[0] == module:
+            assert full.rpartition(".")[2] in names, f"stale: {full}"
 
 
 def _fields(cls):
@@ -149,16 +284,20 @@ def _pair(h=64, w=128):
 
 @pytest.mark.parametrize("case", ["padded_build", "single_stream_step"])
 def test_unported_branch_raises(case):
-    """padded_build is not ported and refuses; the single-stream step (a
+    """padded_build, once refused, is accepted and gives the flow, min_eig
+    and valid of the default build bit for bit; the single-stream step (a
     stub until the serving slice's remainder) runs one frame on the CPU
     and keeps lk_tpu's single-stream shapes."""
     prv, nxt = _pair()
     cfg = LKConfig(max_level=1)
     if case == "padded_build":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            td.dense_pyramidal_lk_video(torch.stack([prv, nxt]), cfg,
-                                        DenseLKConfig(use_pallas_fused=True,
-                                                      padded_build=True))
+        dcfg = DenseLKConfig(use_pallas_fused=True)
+        frames = torch.stack([prv, nxt])
+        want = td.dense_pyramidal_lk_video(frames, cfg, dcfg)
+        got = td.dense_pyramidal_lk_video(
+            frames, cfg, dataclasses.replace(dcfg, padded_build=True))
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
         return
     from lk_tpu_torch.ops.rasterize import build_roi_masks
     from lk_tpu_torch.pipeline.runner import make_chunk_runner
