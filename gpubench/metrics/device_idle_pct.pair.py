@@ -1,0 +1,3 @@
+"""Share of the traced request window in which no device operation ran, %."""
+
+from gpubench.metrics._readers import device_idle_pct as read  # noqa: F401

@@ -1,0 +1,7 @@
+"""Device kernel launches per flow field over the traced video calls."""
+
+from gpubench.metrics._readers import kernels_per
+
+
+def read(ctx):
+    return kernels_per(ctx, "pairs")
