@@ -27,7 +27,7 @@ apps       the five reference apps and the serving benchmark
            (python -m lk_tpu_torch.apps <app>); apps.display the viewer
 viz        the reference's figures (matplotlib / OpenCV, imported when
            drawing)
-utils      state checkpoints, profiling
+utils      state checkpoints, profiling (``span``: the gated profiler range)
 csrc       CUDA sources, built with nvcc at first use (_build.py)
 """
 

@@ -59,6 +59,7 @@ from lk_tpu_torch.ops.boxfilter import box_sum
 from lk_tpu_torch.ops.gradients import scharr_derivatives
 from lk_tpu_torch.ops.resize import upsample2_linear
 from lk_tpu_torch.ops.warp import shift_select_warp
+from lk_tpu_torch.utils.profiling import span
 
 # lk_tpu/flow/dense.py _build_levels_padded's assertion, word for word
 _PADDED_BUILD_NEEDS_FAST = (
@@ -314,15 +315,16 @@ def dense_pyramidal_lk(
     The two pyramids are built as one (2, H, W) stack: one
     ``build_pyramid`` call (one kernel launch on the card) for the pair,
     its base edge-padded to ``pyramid_base_geometry`` under
-    ``pallas_pyramid``."""
-    cfg = _effective_cfg(cfg, dense_cfg, prev.shape[-2:])
-    h_true, w_true = prev.shape[-2:]
-    pair = build_frame_levels(
-        torch.stack([prev.to(torch.float32), next_.to(torch.float32)]),
-        cfg, dense_cfg)
-    return dense_flow_from_levels(
-        [lv[0] for lv in pair], [lv[1] for lv in pair], cfg, dense_cfg,
-        (h_true, w_true), init_flow=init_flow)
+    ``pallas_pyramid``.  The call is the span ``dense.pair``."""
+    with span("dense.pair"):
+        cfg = _effective_cfg(cfg, dense_cfg, prev.shape[-2:])
+        h_true, w_true = prev.shape[-2:]
+        pair = build_frame_levels(
+            torch.stack([prev.to(torch.float32), next_.to(torch.float32)]),
+            cfg, dense_cfg)
+        return dense_flow_from_levels(
+            [lv[0] for lv in pair], [lv[1] for lv in pair], cfg, dense_cfg,
+            (h_true, w_true), init_flow=init_flow)
 
 
 def pyramid_base_geometry(
@@ -539,41 +541,42 @@ def dense_flow_chunk_prepadded(
 
     Per pair bit-identical to the per-frame chain: the level runs the same
     per-pixel arithmetic whatever K, and ``build_pyramid`` is elementwise over
-    the frame axis."""
-    cfg = _effective_cfg(cfg, dense_cfg, true_hw)
-    h_true, w_true = true_hw
-    top = cfg.max_level
-    if len(plan) != top + 1:
-        raise ValueError(f"{len(plan)}-level plan for max_level {top}")
-    _check_padded_build(dense_cfg)
-    stacks = build_frame_levels(frames_chunk, cfg, dense_cfg)
-    for st, p in zip(stacks, plan):
-        if tuple(st.shape[1:]) != (p.h, p.w):
-            raise ValueError(f"level {tuple(st.shape)} does not match {p}")
-    k = frames_chunk.shape[0] - 1
-    p = plan[top]
-    st = stacks[top]
-    seed = torch.zeros((k, 2, p.h, p.w), dtype=torch.float32,
-                       device=st.device)
-    flow, min_eig, valid = fused_lk_level(
-        st[:-1], st[1:], seed, tile_h=p.h, tile_w=p.w, max_disp=p.disp,
-        local=p.local, n_iters=p.iters,
-        min_eig_threshold=cfg.min_eig_threshold, win_k=cfg.win_size[1])
-    for level in range(top - 1, -1, -1):
-        p = plan[level]
-        st = stacks[level]
-        flow, me, va = fused_lk_level(
-            st[:-1], st[1:], flow, tile_h=p.th, tile_w=p.tw,
-            max_disp=p.disp, local=p.local, coarse_in=True,
-            write_stats=(level == 0),
+    the frame axis.  The call is the span ``dense.chunk``."""
+    with span("dense.chunk"):
+        cfg = _effective_cfg(cfg, dense_cfg, true_hw)
+        h_true, w_true = true_hw
+        top = cfg.max_level
+        if len(plan) != top + 1:
+            raise ValueError(f"{len(plan)}-level plan for max_level {top}")
+        _check_padded_build(dense_cfg)
+        stacks = build_frame_levels(frames_chunk, cfg, dense_cfg)
+        for st, p in zip(stacks, plan):
+            if tuple(st.shape[1:]) != (p.h, p.w):
+                raise ValueError(f"level {tuple(st.shape)} does not match {p}")
+        k = frames_chunk.shape[0] - 1
+        p = plan[top]
+        st = stacks[top]
+        seed = torch.zeros((k, 2, p.h, p.w), dtype=torch.float32,
+                           device=st.device)
+        flow, min_eig, valid = fused_lk_level(
+            st[:-1], st[1:], seed, tile_h=p.h, tile_w=p.w, max_disp=p.disp,
+            local=p.local, n_iters=p.iters,
             min_eig_threshold=cfg.min_eig_threshold, win_k=cfg.win_size[1])
-        if level == 0:
-            min_eig, valid = me, va
-    return DenseFlowResult(
-        flow=flow[:, :, :h_true, :w_true].movedim(1, -1),
-        min_eig=min_eig[:, :h_true, :w_true],
-        valid=valid[:, :h_true, :w_true],
-    )
+        for level in range(top - 1, -1, -1):
+            p = plan[level]
+            st = stacks[level]
+            flow, me, va = fused_lk_level(
+                st[:-1], st[1:], flow, tile_h=p.th, tile_w=p.tw,
+                max_disp=p.disp, local=p.local, coarse_in=True,
+                write_stats=(level == 0),
+                min_eig_threshold=cfg.min_eig_threshold, win_k=cfg.win_size[1])
+            if level == 0:
+                min_eig, valid = me, va
+        return DenseFlowResult(
+            flow=flow[:, :, :h_true, :w_true].movedim(1, -1),
+            min_eig=min_eig[:, :h_true, :w_true],
+            valid=valid[:, :h_true, :w_true],
+        )
 
 
 def _stack(results: list) -> DenseFlowResult:
@@ -596,7 +599,17 @@ def dense_pyramidal_lk_video(
     many cold pairs, the leftover pairs through the per-frame chain.  With
     ``video_warm_start`` the top level of each pair after the first is
     seeded with the previous pair's converged top flow and runs
-    ``warm_top_iters``."""
+    ``warm_top_iters``.  The call is the span ``dense.video``; in it, the
+    chunks' ``dense.chunk``, the leftover pairs' ``dense.tail`` and the
+    output copy's ``dense.cat``."""
+    with span("dense.video"):
+        return _video(frames, cfg, dense_cfg)
+
+
+def _video(frames: torch.Tensor, cfg: LKConfig, dense_cfg: DenseLKConfig
+           ) -> DenseFlowResult:
+    """``dense_pyramidal_lk_video`` outside its span: the chunked branch's
+    leftover pairs recurse here, so ``dense.video`` never nests in itself."""
     if frames.ndim != 3 or frames.shape[0] < 2:
         raise ValueError(f"frames must be (T >= 2, H, W), got "
                          f"{tuple(frames.shape)}")
@@ -616,9 +629,10 @@ def dense_pyramidal_lk_video(
             for c in range(n_chunks)]
         if (t_total - 1) - n_chunks * chunk:
             tail_cfg = dataclasses.replace(dense_cfg, video_chunk=0)
-            parts.append(dense_pyramidal_lk_video(
-                frames[n_chunks * chunk:], cfg, tail_cfg))
-        return _cat(parts)
+            with span("dense.tail"):
+                parts.append(_video(frames[n_chunks * chunk:], cfg, tail_cfg))
+        with span("dense.cat"):
+            return _cat(parts)
 
     def chain(levels_a, levels_b, d_cfg, pl, seed=None, want_top=False):
         if pl is not None:

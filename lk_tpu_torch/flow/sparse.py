@@ -50,11 +50,11 @@ import ctypes
 import functools
 
 import torch
-from torch.profiler import record_function
 
 from lk_tpu_torch.config import LKConfig
 from lk_tpu_torch.ops.blur import build_pyramid, reflect101_index
 from lk_tpu_torch.ops.gradients import scharr_derivatives
+from lk_tpu_torch.utils.profiling import span
 
 # superwindow of `next` fetched per point per level (lk_tpu's _SW_ROWS/COLS)
 _SW_ROWS = 32
@@ -356,7 +356,7 @@ def track_points(prev_img: torch.Tensor, next_img: torch.Tensor,
     equivalent of cv.calcOpticalFlowPyrLK (reference LK_Final.py:531-532).
     """
     pad = max(cfg.win_size) + 2
-    with record_function("tracker.pyramid"):
+    with span("tracker.pyramid"):
         levels = build_tracking_pyramid(torch.stack([prev_img, next_img]),
                                         cfg.max_level, pad)
     pts = pts.to(torch.float32)
@@ -364,16 +364,16 @@ def track_points(prev_img: torch.Tensor, next_img: torch.Tensor,
     next_pt = pts / float(2 ** cfg.max_level)
     for level in range(cfg.max_level, -1, -1):
         prev_pad, next_pad = levels[level]
-        with record_function("tracker.scharr"):
+        with span("tracker.scharr"):
             ix_pad, iy_pad = scharr_derivatives(prev_pad)
         prev_pt = pts / float(2 ** level)
         if level != cfg.max_level:
             next_pt = next_pt * 2.0
-        with record_function("tracker.refine"):
+        with span("tracker.refine"):
             next_pt, status, p_win, geom = _track_one_level(
                 prev_pad, ix_pad, iy_pad, next_pad, prev_pt, next_pt, status,
                 cfg, pad, is_level0=level == 0)
-    with record_function("tracker.refine"):
+    with span("tracker.refine"):
         # err: mean |window difference| at the final position (OpenCV's)
         j_win, _ = _sample_patch(next_pad.reshape(-1), next_pt, geom, pad,
                                  next_pad.shape[1])
@@ -521,7 +521,7 @@ def track_points_batched_prepped(prev_folded, next_imgs, pts, valid,
         h_levels.append(_h)
         _h = -(-_h // 2)
 
-    with record_function("tracker.fold"):
+    with span("tracker.fold"):
         next_folded = fold_tracking_levels(next_imgs, cfg, row_band=row_band)
     if len(prev_folded) != cfg.max_level + 1 \
             or prev_folded[0].shape != next_folded[0].shape:
@@ -568,10 +568,10 @@ def track_points_batched_prepped(prev_folded, next_imgs, pts, valid,
               - (sw_h - win_h - 1) // 2).clamp(0, fph - sw_h)
         sx = (torch.floor(next_pt[:, 0] - half_x).to(torch.int64) + pad
               - (sw_w - win_w - 1) // 2).clamp(0, fpw - sw_w)
-        with record_function("tracker.gather"):
+        with span("tracker.gather"):
             raw, sw = gather_windows(prev_f, next_f, cy, cx, sy + base_y, sx,
                                      win_h, win_w, sw_h, sw_w)
-        with record_function("tracker.refine"):
+        with span("tracker.refine"):
             next_pt, good, kept, lvl_err = _refine_level(
                 raw, sw, fx, fy, next_pt, prev_inside, sy, sx,
                 (r0, pad, w, h_true), cfg, area2, with_err=level == 0)

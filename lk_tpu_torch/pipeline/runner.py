@@ -31,7 +31,6 @@ from typing import Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from lk_tpu_torch.config import PipelineConfig
 from lk_tpu_torch.flow.sparse import fold_tracking_levels
@@ -43,6 +42,7 @@ from lk_tpu_torch.pipeline.state import (CompactChunkOutputs, FrameOutputs,
                                          without_stream_axis)
 from lk_tpu_torch.pipeline.step import (make_step, preprocess_frame,
                                         tracker_row_band)
+from lk_tpu_torch.utils.profiling import span
 
 
 def _cached_finish(cfg: PipelineConfig):
@@ -174,7 +174,7 @@ def make_batched_chunk_runner(cfg: PipelineConfig,
     row_band = tracker_row_band(cfg, height, sub_masks)
 
     def run_chunk_b(states: PipelineState, frames: torch.Tensor):
-        with record_function("tracker.fold"):
+        with span("tracker.fold"):
             carry = (states, fold_tracking_levels(states.prev_gray, cfg.lk,
                                                   row_band=row_band))
         outs = []
@@ -183,7 +183,7 @@ def make_batched_chunk_runner(cfg: PipelineConfig,
             outs.append(o)
         outs = _stack_frames(outs, dim=1)
         if cfg.out_cap > 0:
-            with record_function("serve.compact"):
+            with span("serve.compact"):
                 outs = _compact_chunk_outputs(outs, cfg.out_cap)
         return carry[0], outs
 
@@ -260,7 +260,7 @@ class VideoPipeline:
     def drain(self) -> None:
         """Fetch the buffered chunks' outputs into the host sinks."""
         pending, self._pending_outs = self._pending_outs, []
-        with record_function("video.drain"):
+        with span("video.drain"):
             for outs in pending:
                 self._drain(outs)
 
@@ -282,7 +282,7 @@ class VideoPipeline:
     def _ingest(self, frames_u8: np.ndarray) -> torch.Tensor:
         """(T, Hs, Ws, 3) u8 BGR -> (T, H, W) f32 processed frames on the
         device."""
-        with record_function("video.ingest"):
+        with span("video.ingest"):
             if self.host_preprocess:
                 import cv2 as cv
 
@@ -597,7 +597,7 @@ class MultiStreamPipeline:
         resize = src_hw != (self.height, self.width)
 
         def prep(x):                       # (..., hs, ws) -> f32 (..., h, w)
-            with record_function("serve.finish"):
+            with span("serve.finish"):
                 if resize:
                     x = resize_area(x, self.height, self.width)
                 return self._finish(x)
@@ -639,7 +639,7 @@ class MultiStreamPipeline:
             self._drain_now(pending)
 
     def _drain_now(self, pending) -> None:
-        with record_function("serve.drain"):
+        with span("serve.drain"):
             for outs, nv, pipes in pending:
                 host = _to_numpy(outs)
                 for b, p in enumerate(pipes):

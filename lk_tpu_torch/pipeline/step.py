@@ -22,7 +22,6 @@ from typing import Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from lk_tpu_torch.config import PipelineConfig
 from lk_tpu_torch.features.shi_tomasi import (good_features_from_response,
@@ -41,6 +40,7 @@ from lk_tpu_torch.ops.tone import contrast_brightness
 from lk_tpu_torch.pipeline.state import (FrameOutputs, PipelineState,
                                          slots_per_group, with_stream_axis,
                                          without_stream_axis)
+from lk_tpu_torch.utils.profiling import span
 
 
 def preprocess_frame(bgr: torch.Tensor, cfg: PipelineConfig, out_h: int,
@@ -160,7 +160,7 @@ def make_step(cfg: PipelineConfig, frame_size: Tuple[int, int],
         trigger = ((live < int(cfg.tp_num * cfg.tp_update_rate))
                    | (state.tp_ult == cfg.tp_update_time))
 
-        with record_function("step.vp_scan"):
+        with span("step.vp_scan"):
             cps_c, cand_c, n_cand = frame_candidates(stats_all, accepted, cfg,
                                                      (width, height))
             # the one host read of the frame
@@ -231,7 +231,7 @@ def make_step(cfg: PipelineConfig, frame_size: Tuple[int, int],
         """Detection of the B frames when any stream replenishes (read in
         ``_pre``'s host read), else empty pools."""
         if ctx["any_trigger"]:
-            with record_function("step.detect"):
+            with span("step.detect"):
                 return detect(grays)
         b = grays.shape[0]
         return (torch.zeros((b, g, s, 2), dtype=torch.float32,
