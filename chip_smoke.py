@@ -299,13 +299,19 @@ def device():
 @contextlib.contextmanager
 def patched(module, name, value):
     """Context: ``module.name`` rebound to ``value`` (the dense paths look
-    their kernels' wrappers up at call time)."""
+    their kernels' wrappers up at call time).  The per-pair CUDA graphs are
+    dropped on entry and exit, so none captured with one binding replays
+    under the other."""
+    from lk_tpu_torch.flow import dense
+
     old = getattr(module, name)
+    dense._pair_graphs.clear()
     setattr(module, name, value)
     try:
         yield
     finally:
         setattr(module, name, old)
+        dense._pair_graphs.clear()
 
 
 def plain_pyramid():
@@ -1209,9 +1215,17 @@ EXPECT = {   # launches per pair at 1080p; every other count 0
 }
 
 
+# EXPECT's counters by the kernel names of a device trace
+TRACE_NAMES = {"pyr_down": "pyramid_kernel", "resident": "fused_lk_level",
+               "tiled": "fused_lk_level", "local_warp": "local_warp",
+               "fused_lk_level_precomputed": "fused_level_pre"}
+
+
 def counted(name, fn, *args):
     """fn(*args) with the counters reset just before and read just after;
-    checks path ``name``'s launches and that no plain version ran."""
+    checks path ``name``'s launches and that no plain version ran.  A
+    per-pair CUDA graph's replay counts only its level 0: ``fn`` is a key's
+    first or capturing call here, and ``replayed`` checks a replay."""
     import torch
 
     torch.cuda.synchronize()
@@ -1223,6 +1237,24 @@ def counted(name, fn, *args):
     check(plain == 0, f"path {name}: plain versions ran {plain}x")
     check(counts == want, f"path {name}: launches {counts}, expected {want}")
     return out, {k: n for k, n in counts.items() if n}
+
+
+def replayed(name, run):
+    """Path ``name``'s launches in a device trace of a call of ``run`` that
+    replays the per-pair CUDA graph (the kernel wrappers count only the
+    launches they make, level 0's on a replay)."""
+    from lk_tpu_torch.flow import dense
+
+    launches = {}
+    for k, n in EXPECT[name].items():
+        if k in TRACE_NAMES:
+            launches[TRACE_NAMES[k]] = launches.get(TRACE_NAMES[k], 0) + n
+    run()                      # captures, if no call has yet
+    before = dense.pair_graph_counts["replays"]
+    traced_kernels(run, 1, launches)
+    check(dense.pair_graph_counts["replays"] > before,
+          f"path {name}: the traced call did not replay a CUDA graph")
+    return launches
 
 
 def perpair_paths(scenes, video_pair0, cfg, card):
@@ -1245,6 +1277,7 @@ def perpair_paths(scenes, video_pair0, cfg, card):
         pair = torch.from_numpy(frames_np[:2]).to(device())
         flow, counts = counted("A", fn, pair[0], pair[1])
         result.setdefault("A", counts)
+        traced = replayed("A", lambda: fn(pair[0], pair[1]))
         with plain_pyramid():
             same_plain = torch.equal(fn(pair[0], pair[1]), flow)
         check(same_plain, f"path A {label}: the flow differs with the plain "
@@ -1252,8 +1285,9 @@ def perpair_paths(scenes, video_pair0, cfg, card):
         epe = mean_epe(flow[None].cpu().numpy(), a)
         same = torch.equal(flow, video_pair0[label])
         d = float((flow - video_pair0[label]).abs().max())
-        print(f"[path A] {label}: launches {counts}, plain calls 0, mean "
-              f"EPE {epe:.4f} px (limit {EPE_LIMIT}); == the run with the "
+        print(f"[path A] {label}: launches {counts} (replayed, traced: "
+              f"{traced}), plain calls 0, mean EPE {epe:.4f} px (limit "
+              f"{EPE_LIMIT}); == the run with the "
               f"plain pyramid: {same_plain}; == video chain pair 0: {same} "
               f"(max|d| {d:.3g} px)")
         check(epe < EPE_LIMIT, f"path A {label}: EPE {epe}")
@@ -1263,6 +1297,8 @@ def perpair_paths(scenes, video_pair0, cfg, card):
         for name in ("B", "B16", "C", "C16"):
             res, counts = counted(name, dense.dense_pyramidal_lk, pair[0],
                                   pair[1], cfg, None, path_cfg(name))
+            traced = replayed(name, lambda: dense.dense_pyramidal_lk(
+                pair[0], pair[1], cfg, None, path_cfg(name)))
             result.setdefault(name, counts)
             flow = res.flow
             check(tuple(flow.shape) == (H, W, 2)
@@ -1286,9 +1322,10 @@ def perpair_paths(scenes, video_pair0, cfg, card):
                 same = (", flow, min_eig and valid == the runs with the "
                         "plain precomputed level and with the plain local "
                         "warp")
-            print(f"[path {name}] {label}: launches {counts}, plain calls "
-                  f"0, valid {float(res.valid.float().mean()):.4f}, mean "
-                  f"EPE {epe:.4f} px{limit}{same}")
+            print(f"[path {name}] {label}: launches {counts} (replayed, "
+                  f"traced: {traced}), plain calls 0, valid "
+                  f"{float(res.valid.float().mean()):.4f}, mean EPE "
+                  f"{epe:.4f} px{limit}{same}")
             if name != "C":
                 check(epe < EPE_LIMIT, f"path {name} {label}: EPE {epe}")
     return result
@@ -1308,9 +1345,14 @@ def perpair_timing(frames0, cfg, card, profile):
         def run():
             dense.dense_pyramidal_lk(f0, f1, cfg, dense_cfg=dcfg)
 
+        run()        # the key's first call runs op by op; cuda_ms's
+        dense.reset_counters()     # warm-up captures the CUDA graph
         ms = cuda_ms(run, reps)
+        c = dense.pair_graph_counts
         print(f"[time] path {name} dense_pyramidal_lk {H}x{W}: {ms:.3f} ms "
-              f"per pair = {1e3 / ms:.1f} pairs/s  [{card}]")
+              f"per pair = {1e3 / ms:.1f} pairs/s, CUDA graph replays "
+              f"{c['replays']} of {c['replays'] + c['eager']} calls  "
+              f"[{card}]")
         if profile:
             profile_run(f"path {name} pair", run, card)
 

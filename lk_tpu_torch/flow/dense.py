@@ -34,6 +34,11 @@ copies; the port's one-launch build already does (the base pad folded in),
 so it runs that build and gives the same bits, and refuses, as ``lk_tpu``,
 without ``fast_pyramid``.
 
+On the card ``dense_pyramidal_lk`` replays its pyramid and its levels down
+to level 1 as one CUDA graph per key (shapes, types, device, stream,
+configs), then launches level 0 op by op into fresh outputs;
+``pair_graph_counts`` counts captures, replays and op-by-op calls.
+
 The two bf16 options of the masked-iteration and precomputed-A levels are
 ported as ``lk_tpu`` applies them: ``bf16_box_sums`` takes the three A
 sums and the per-iteration b sums in bf16 (``box_sum(sum_dtype=)``), and
@@ -44,7 +49,9 @@ stays f32).  The grads-fused level ignores both, as in ``lk_tpu``.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -315,16 +322,122 @@ def dense_pyramidal_lk(
     The two pyramids are built as one (2, H, W) stack: one
     ``build_pyramid`` call (one kernel launch on the card) for the pair,
     its base edge-padded to ``pyramid_base_geometry`` under
-    ``pallas_pyramid``.  The call is the span ``dense.pair``."""
+    ``pallas_pyramid``.  On the card, with no ``init_flow`` and no stream
+    capture under way, the pyramid and the levels down to level 1 replay
+    as one CUDA graph (``_pair_graph``); level 0 runs after it into fresh
+    outputs, so no result shares memory with the graph.  The call is the
+    span ``dense.pair``."""
     with span("dense.pair"):
-        cfg = _effective_cfg(cfg, dense_cfg, prev.shape[-2:])
-        h_true, w_true = prev.shape[-2:]
-        pair = build_frame_levels(
-            torch.stack([prev.to(torch.float32), next_.to(torch.float32)]),
-            cfg, dense_cfg)
-        return dense_flow_from_levels(
-            [lv[0] for lv in pair], [lv[1] for lv in pair], cfg, dense_cfg,
-            (h_true, w_true), init_flow=init_flow)
+        if init_flow is None and prev.is_cuda:
+            with torch.cuda.device(prev.device):
+                if not torch.cuda.is_current_stream_capturing():
+                    return _pair_graph(prev, next_, cfg, dense_cfg)
+        pair_graph_counts["eager"] += 1
+        return _pair_eager(prev, next_, cfg, dense_cfg, init_flow)
+
+
+def _pair_eager(prev, next_, cfg, dense_cfg, init_flow) -> DenseFlowResult:
+    """``dense_pyramidal_lk`` op by op."""
+    cfg = _effective_cfg(cfg, dense_cfg, prev.shape[-2:])
+    h_true, w_true = prev.shape[-2:]
+    pair = build_frame_levels(
+        torch.stack([prev.to(torch.float32), next_.to(torch.float32)]),
+        cfg, dense_cfg)
+    return dense_flow_from_levels(
+        [lv[0] for lv in pair], [lv[1] for lv in pair], cfg, dense_cfg,
+        (h_true, w_true), init_flow=init_flow)
+
+
+# ---------------------------------------------------------------------------
+# The per-pair program as a CUDA graph
+# ---------------------------------------------------------------------------
+
+# Keys whose graph ``dense_pyramidal_lk`` keeps; the least recently used
+# goes first, and its memory pool with it.
+PAIR_GRAPHS = 8
+
+# ``dense_pyramidal_lk`` calls by how they ran: ``captures`` (a key's graph
+# captured), ``replays`` (a graph replayed, the capturing call's too) and
+# ``eager`` (op by op: a key's first call and every call the graph does not
+# take).  The graph's hit share is replays / (replays + eager).  The kernel
+# wrappers count the launches they make: a capture's, and level 0's on
+# every call; a replay's other launches show in a device trace only.
+pair_graph_counts = {"captures": 0, "replays": 0, "eager": 0}
+
+_pair_graphs: collections.OrderedDict = collections.OrderedDict()
+_pair_graphs_lock = threading.Lock()
+_capture_lock = threading.Lock()     # one capture at a time in the process
+
+
+def reset_counters() -> None:
+    for k in pair_graph_counts:
+        pair_graph_counts[k] = 0
+
+
+class _PairProgram:
+    """One key's graph: the static pair it reads, and its level 0 (the
+    call ``_coarse_levels`` returned while capturing)."""
+
+    def __init__(self):
+        self.lock = threading.Lock()   # copy-in to level 0's launch
+        self.pair = None               # made by the key's first call
+        self.graph = None
+        self.finest = None
+
+    def capture(self, hw, cfg, dense_cfg) -> None:
+        """Capture the pyramid and the levels top..1 from ``self.pair``, on
+        a side stream.  ``torch.cuda.graph``'s synchronize, garbage
+        collection and ``empty_cache`` are left out: they would empty the
+        whole process's allocator cache for one key."""
+        cfg = _effective_cfg(cfg, dense_cfg, hw)
+        graph = torch.cuda.CUDAGraph()
+        with _capture_lock, torch.cuda.stream(torch.cuda.Stream()):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                levels = build_frame_levels(self.pair, cfg, dense_cfg)
+                finest = _coarse_levels(
+                    [lv[0] for lv in levels], [lv[1] for lv in levels], cfg,
+                    dense_cfg, hw)
+            finally:
+                graph.capture_end()
+        self.graph, self.finest = graph, finest
+        pair_graph_counts["captures"] += 1
+
+
+def _pair_graph(prev, next_, cfg, dense_cfg) -> DenseFlowResult:
+    """``dense_pyramidal_lk`` through its key's graph, on the current
+    device.  The key: the inputs' shapes, types and device, the current
+    stream and both configs.  A key's first call runs op by op, so the
+    kernel library is built and the launchers' caches (occupancy,
+    shared-memory attributes) are filled outside any capture.  The second
+    captures, and it and every later call copy the pair in, replay, and
+    launch level 0.  A caller that rebinds a name this module looks up at
+    call time clears ``_pair_graphs`` around it."""
+    key = (prev.shape, next_.shape, prev.dtype, next_.dtype,
+           prev.device.index, torch.cuda.current_stream().cuda_stream, cfg,
+           dense_cfg)
+    with _pair_graphs_lock:
+        prog = _pair_graphs.get(key)
+        if prog is None:
+            prog = _pair_graphs[key] = _PairProgram()
+            while len(_pair_graphs) > PAIR_GRAPHS:
+                _pair_graphs.popitem(last=False)
+        else:
+            _pair_graphs.move_to_end(key)
+    with prog.lock:
+        if prog.pair is None:
+            result = _pair_eager(prev, next_, cfg, dense_cfg, None)
+            prog.pair = torch.empty((2, *prev.shape), dtype=torch.float32,
+                                    device=prev.device)
+            pair_graph_counts["eager"] += 1
+            return result
+        torch.stack([prev.to(torch.float32), next_.to(torch.float32)],
+                    out=prog.pair)
+        if prog.graph is None:
+            prog.capture(prev.shape[-2:], cfg, dense_cfg)
+        prog.graph.replay()
+        pair_graph_counts["replays"] += 1
+        return prog.finest()
 
 
 def pyramid_base_geometry(
@@ -726,8 +839,22 @@ def dense_flow_from_levels(
     path: each level padded to its tile geometry inside dense_lk_level).
 
     init_flow seeds the top level ((h, w, 2), edge-padded if sized for the
-    unpadded top); return_top_flow also returns the converged top flow."""
-    cfg = _effective_cfg(cfg, dense_cfg, true_hw)
+    unpadded top); return_top_flow also returns the converged top flow.
+    Levels top..1 run first, then level 0 (``_coarse_levels``): the split
+    along which ``dense_pyramidal_lk`` replays its CUDA graph."""
+    return _coarse_levels(prev_levels, next_levels,
+                          _effective_cfg(cfg, dense_cfg, true_hw), dense_cfg,
+                          true_hw, init_flow, return_top_flow)()
+
+
+def _coarse_levels(prev_levels, next_levels, cfg: LKConfig,
+                   dense_cfg: DenseLKConfig, true_hw: tuple[int, int],
+                   init_flow: Optional[torch.Tensor] = None,
+                   return_top_flow: bool = False):
+    """``dense_flow_from_levels``'s levels top..1 (``cfg`` already through
+    ``_effective_cfg``).  Returns its level 0 as a call: each call launches
+    level 0 from what the coarse levels left, into fresh outputs, and gives
+    what ``dense_flow_from_levels`` returns."""
     h_true, w_true = true_hw
     top = cfg.max_level
     h_top, w_top = prev_levels[top].shape[-2:]
@@ -760,10 +887,10 @@ def dense_flow_from_levels(
         coarse_ok[level] = (not g_res and (hp, wp) == (h, w)
                             and th % 16 == 0 and tw % 256 == 0)
 
-    result = None
-    top_flow = None
-    planes = False     # whether `flow` carries (2, h, w) plane layout
-    for level in range(top, -1, -1):
+    def step(level: int, flow: torch.Tensor, planes: bool) -> tuple:
+        """One level from the coarser level's ``flow`` (in the (2, h, w)
+        plane layout when ``planes``): (its result, whether its flow is in
+        the plane layout)."""
         use_coarse = level != top and coarse_ok[level] and planes
         if level != top and not use_coarse:
             h, w = prev_levels[level].shape[-2:]
@@ -778,16 +905,27 @@ def dense_flow_from_levels(
             coarse_planes_init=flow if use_coarse else None,
             planes_out=want_planes,
         )
+        return result, want_planes
+
+    top_flow = None
+    planes = False     # whether `flow` carries (2, h, w) plane layout
+    for level in range(top, 0, -1):
+        result, planes = step(level, flow, planes)
         flow = result.flow
-        planes = want_planes
         if level == top and return_top_flow:
             top_flow = flow.movedim(0, -1) if planes else flow
-    if tuple(result.flow.shape[:2]) != (h_true, w_true):
-        result = DenseFlowResult(
-            flow=result.flow[:h_true, :w_true],
-            min_eig=result.min_eig[:h_true, :w_true],
-            valid=result.valid[:h_true, :w_true],
-        )
-    if return_top_flow:
-        return result, top_flow
-    return result
+
+    def finest():
+        result, _ = step(0, flow, planes)
+        finest_top = result.flow if top == 0 else top_flow
+        if tuple(result.flow.shape[:2]) != (h_true, w_true):
+            result = DenseFlowResult(
+                flow=result.flow[:h_true, :w_true],
+                min_eig=result.min_eig[:h_true, :w_true],
+                valid=result.valid[:h_true, :w_true],
+            )
+        if return_top_flow:
+            return result, finest_top
+        return result
+
+    return finest

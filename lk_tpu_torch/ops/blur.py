@@ -49,7 +49,24 @@ def reset_counters() -> None:
     kernel_launches = plain_calls = 0
 
 
-@functools.lru_cache(maxsize=64)
+def _device_cache(fn):
+    """``fn``, whose last argument is a device, behind an LRU cache that a
+    CUDA graph capture on the calling thread bypasses: a graph would read a
+    cached tensor after the cache had evicted and freed it, so a capture
+    makes its own."""
+    cached = functools.lru_cache(maxsize=64)(fn)
+
+    @functools.wraps(fn)
+    def call(*args):
+        if (args[-1].type == "cuda"
+                and torch.cuda.is_current_stream_capturing()):
+            return fn(*args)
+        return cached(*args)
+
+    return call
+
+
+@_device_cache
 def reflect101_index(n: int, before: int, after: int,
                      device: torch.device) -> torch.Tensor:
     """Source indices of an axis of length n padded by ``before``/``after``
@@ -86,7 +103,7 @@ def gaussian_blur3(img: torch.Tensor) -> torch.Tensor:
     return sep_filter2d(img, _GAUSS3)
 
 
-@functools.lru_cache(maxsize=64)
+@_device_cache
 def _reflect101_taps(n: int, device: torch.device) -> tuple[torch.Tensor, ...]:
     """Source indices of the five taps of every even output position
     (cached: building them per call is ~30 tiny launches per axis)."""

@@ -84,8 +84,11 @@ def _up_axis(x: torch.Tensor, dst: int, dim: int) -> torch.Tensor:
     high = torch.cat([a.narrow(dim, 1, n - 1), a.narrow(dim, n - 1, 1)], dim)
     shape = [1] * x.ndim
     shape[dim] = n
-    frac = torch.tensor([0.75, 0.25], dtype=torch.float32,
-                        device=x.device).repeat(src).reshape(shape)
+    # 0.75 at even positions, 0.25 at odd, filled on the device (a host
+    # copy could not be captured in a CUDA graph)
+    frac = torch.full((src, 2), 0.25, dtype=torch.float32, device=x.device)
+    frac[:, 0] = 0.75
+    frac = frac.reshape(shape)
     out = low * (1.0 - frac) + high * frac
     return out.narrow(dim, 0, dst)
 

@@ -842,3 +842,228 @@ def test_sharded_serving_world1_nccl(cuda_device, nccl_world1):
         assert p.csv_rows == q.csv_rows
         assert p.vp_per_frame == q.vp_per_frame
         assert p.cross_points == q.cross_points
+
+
+# --- the per-pair program's CUDA graph ---------------------------------------
+
+PAIR_PATHS = {
+    "A": dict(use_pallas_warp=True, pallas_pyramid=True),
+    "B": dict(use_pallas_warp=True, fused_grads_in_kernel=False),
+    "C": dict(),
+}
+
+
+def _pair_setup(path, h, w, seed=0):
+    """(dense module, LKConfig, DenseLKConfig, prev, next) with an empty
+    graph cache and zeroed counters."""
+    from lk_tpu_torch.config import DenseLKConfig, LKConfig
+    from lk_tpu_torch.flow import dense
+
+    dense._pair_graphs.clear()
+    dense.reset_counters()
+    f = _frames(2, h, w, "cuda", seed=seed)
+    return (dense, LKConfig(), DenseLKConfig(**PAIR_PATHS[path]),
+            f[0].clone(), f[1].clone())
+
+
+def _same(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,hw", [("A", (1080, 1920)), ("A", (483, 861)),
+                                     ("B", (1080, 1920)), ("C", (483, 861))])
+def test_pair_graph_equals_eager(cuda_device, path, hw):
+    """The second call captures and replays, later calls replay: each gives
+    the op-by-op program's flow, min_eig and valid bit for bit, and the
+    counters read one capture and n - 1 replays."""
+    dense, cfg, dcfg, prev, nxt = _pair_setup(path, *hw)
+    want = dense._pair_eager(prev, nxt, cfg, dcfg, None)
+    outs = [dense.dense_pyramidal_lk(prev, nxt, cfg, dense_cfg=dcfg)
+            for _ in range(4)]
+    torch.cuda.synchronize()
+    assert dense.pair_graph_counts == {"captures": 1, "replays": 3,
+                                       "eager": 1}
+    assert len(dense._pair_graphs) == 1
+    for out in outs:
+        assert tuple(out.flow.shape) == (*hw, 2)
+        assert _same(out, want)
+
+
+@pytest.mark.cuda
+def test_pair_graph_results_are_fresh(cuda_device):
+    """A replayed call's result shares no memory with the graph: it is
+    unchanged after later calls on other frames, which get their own."""
+    dense, cfg, dcfg, prev, nxt = _pair_setup("A", 483, 861)
+    other = _frames(2, 483, 861, "cuda", seed=5)
+    want_other = dense._pair_eager(other[0], other[1], cfg, dcfg, None)
+    for _ in range(2):
+        dense.dense_pyramidal_lk(prev, nxt, cfg, dense_cfg=dcfg)
+    first = dense.dense_pyramidal_lk(prev, nxt, cfg, dense_cfg=dcfg)
+    kept = [x.clone() for x in first]
+    seconds = [dense.dense_pyramidal_lk(other[0], other[1], cfg,
+                                        dense_cfg=dcfg) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert dense.pair_graph_counts["replays"] == 4
+    assert _same(first, kept)
+    assert all(_same(s, want_other) for s in seconds)
+    assert not _same(first, want_other)
+
+
+def _device_kernels(run):
+    """The names of the device operations of one ``run()`` under
+    torch.profiler, with their counts.  A lead of device spins the host
+    waits out comes first: the profiler can lose a trace's first
+    kernels."""
+    import collections
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            torch.cuda._sleep(1_000_000)
+        torch.cuda.synchronize()
+        run()
+        torch.cuda._sleep(20_000_000)
+        torch.cuda.synchronize()
+    return collections.Counter(
+        e.name for e in prof.events()
+        if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,level0", [("A", "lk"), ("B", "local_warp")])
+def test_pair_graph_counts_launches(cuda_device, path, level0):
+    """The kernel wrappers count the launches they make: the capturing call
+    counts as the op-by-op call, a replayed call only its level 0's one
+    launch.  A replayed call's device trace holds the op-by-op call's
+    kernels of the port, name by name; on path A every device operation
+    (path B's capture also builds the box sums' index tensors, which the
+    op-by-op call takes from ``blur``'s cache)."""
+    dense, cfg, dcfg, prev, nxt = _pair_setup(path, 1080, 1920)
+
+    def run():
+        dense.dense_pyramidal_lk(prev, nxt, cfg, dense_cfg=dcfg)
+
+    def counted():
+        for m in (blur, lk, wk):
+            m.reset_counters()
+        run()
+        return {"lk": sum(lk.kernel_launches_by_variant.values()),
+                **wk.kernel_launches, "pyr_down": blur.kernel_launches,
+                "plain": (lk.plain_calls + sum(wk.plain_calls.values())
+                          + blur.plain_calls)}
+
+    eager, capturing, replayed = counted(), counted(), counted()
+    assert dense.pair_graph_counts == {"captures": 1, "replays": 2,
+                                       "eager": 1}
+    assert eager["pyr_down"] == 1 and eager["plain"] == 0
+    assert sum(eager.values()) > 2
+    assert capturing == eager
+    assert replayed == {k: int(k == level0) for k in eager}
+    def ours(trace):
+        return {k: n for k, n in trace.items() if path == "A" or any(
+            name in k for name in ("pyramid_kernel", "fused_lk_level",
+                                   "local_warp", "fused_level_pre"))}
+
+    for _ in range(2):       # a second trace where the profiler lost one
+        dense._pair_graphs.clear()
+        want = ours(_device_kernels(run))
+        run()
+        got = ours(_device_kernels(run))
+        if got == want:
+            break
+    assert dense.pair_graph_counts["replays"] >= 4
+    assert any("pyramid_kernel" in k for k in got)
+    assert got == want, (got, want)
+
+
+@pytest.mark.cuda
+def test_pair_graph_one_entry_per_stream(cuda_device):
+    """The current stream is part of the key: calls on two streams capture
+    two graphs, each replayed on its own stream."""
+    dense, cfg, dcfg, prev, nxt = _pair_setup("A", 483, 861)
+    want = dense._pair_eager(prev, nxt, cfg, dcfg, None)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            outs += [dense.dense_pyramidal_lk(prev, nxt, cfg, dense_cfg=dcfg)
+                     for _ in range(3)]
+    torch.cuda.synchronize()
+    assert len(dense._pair_graphs) == 2
+    assert dense.pair_graph_counts == {"captures": 2, "replays": 4,
+                                       "eager": 2}
+    assert all(_same(o, want) for o in outs)
+
+
+@pytest.mark.cuda
+def test_pair_graph_not_taken(cuda_device):
+    """A call inside an enclosing capture and a call with ``init_flow`` run
+    op by op and make no key; the enclosing graph replays the program."""
+    dense, cfg, dcfg, prev, nxt = _pair_setup("A", 483, 861)
+    want = dense._pair_eager(prev, nxt, cfg, dcfg, None)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        inside = dense.dense_pyramidal_lk(prev, nxt, cfg, dense_cfg=dcfg)
+    graph.replay()
+    top = dense._effective_cfg(cfg, dcfg, (483, 861)).max_level
+    init = torch.full(((483 >> top), (861 >> top), 2), 0.5,
+                      device=cuda_device)
+    want_init = dense._pair_eager(prev, nxt, cfg, dcfg, init)
+    seeded = [dense.dense_pyramidal_lk(prev, nxt, cfg, init, dcfg)
+              for _ in range(3)]
+    torch.cuda.synchronize()
+    assert dense.pair_graph_counts == {"captures": 0, "replays": 0,
+                                       "eager": 4}
+    assert len(dense._pair_graphs) == 0
+    assert _same(inside, want)
+    assert all(_same(s, want_init) for s in seeded)
+
+
+@pytest.mark.cuda
+def test_pair_graph_threads_share_a_key(cuda_device):
+    """Threads calling on one stream share one key and its static pair
+    buffer: the entry's lock keeps each call's copy-in, replay and level 0
+    together, so every result equals its op-by-op result."""
+    import sys
+    import threading
+
+    dense, cfg, dcfg, prev, nxt = _pair_setup("A", 483, 861)
+    pairs = [_frames(2, 483, 861, "cuda", seed=s) for s in range(4)]
+    wants = [dense._pair_eager(p[0], p[1], cfg, dcfg, None) for p in pairs]
+    dense.dense_pyramidal_lk(prev, nxt, cfg, dense_cfg=dcfg)
+    got, errors = {}, []
+
+    def work(t):
+        try:
+            for i in range(6):
+                p = pairs[(t + i) % len(pairs)]
+                got[t, i] = (dense.dense_pyramidal_lk(p[0], p[1], cfg,
+                                                      dense_cfg=dcfg),
+                             (t + i) % len(pairs))
+        except Exception as e:      # reported by the assertion below
+            errors.append(e)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=work, args=(t,))
+                   for t in range(12)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors, errors
+    torch.cuda.synchronize()
+    assert len(dense._pair_graphs) == 1
+    assert dense.pair_graph_counts == {"captures": 1, "replays": 72,
+                                       "eager": 1}
+    assert len(got) == 72
+    assert all(_same(r, wants[k]) for r, k in got.values())
