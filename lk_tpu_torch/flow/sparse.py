@@ -533,8 +533,8 @@ def track_points_batched_prepped(prev_folded, next_imgs, pts, valid,
     status = flat_valid
     next_pt = flat_pts / float(2 ** cfg.max_level)
     err = None
-    area2 = torch.tensor(2.0 * win_w * win_h, dtype=torch.float32,
-                         device=dev)
+    area2 = torch.full((), 2.0 * win_w * win_h, dtype=torch.float32,
+                       device=dev)
 
     for level in range(cfg.max_level, -1, -1):
         prev_f = prev_folded[level]

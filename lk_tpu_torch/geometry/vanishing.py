@@ -130,11 +130,13 @@ def process_frame_pairs(state: VPState, cps_c: torch.Tensor,
     b, p = cand_c.shape
     r_cap = cfg.vp_ref_num
     dev = cps_c.device
-    bound = torch.tensor([width * cfg.cp_thold, height * cfg.cp_thold],
-                         dtype=torch.float32, device=dev)
+    # constants made on the device (no host copy: a CUDA graph captures it)
+    f32 = dict(dtype=torch.float32, device=dev)
+    bound = torch.stack([torch.full((), width * cfg.cp_thold, **f32),
+                         torch.full((), height * cfg.cp_thold, **f32)])
     rate = cfg.vp_update_rate
     s_clip = cfg.max_cp_std
-    r_cap_f = torch.tensor(float(r_cap), dtype=torch.float32, device=dev)
+    r_cap_f = torch.full((), float(r_cap), **f32)
     rows = torch.zeros((b, p, 2), dtype=torch.float32, device=dev)
     cp_out = torch.zeros((b, p, 2), dtype=torch.float32, device=dev)
     row_mask = torch.zeros((b, p), dtype=torch.bool, device=dev)

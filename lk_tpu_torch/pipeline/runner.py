@@ -14,6 +14,10 @@ tracker's pyramid, the finish and the batched tracker's gather are the
 CUDA kernels of ``ops/blur.py``, ``ops/finish.py`` and ``flow/sparse.py``;
 with tensors on the CPU, their plain versions.
 
+On the card a batched chunk replays one CUDA graph of the batched step
+per frame (``make_batched_chunk_runner``): ``chunk_graph_counts`` counts
+captures, replayed chunks and op-by-op chunks.
+
 ``VideoPipeline`` is the reference's ``Run()`` (LK_Final.py:508-705) for
 one video: frames in, ``csv_rows`` (vps_<video>.csv) and the other sinks
 out, with checkpoints and a prefetching producer thread.
@@ -26,7 +30,9 @@ single-device serving step on them, with no collective.
 
 from __future__ import annotations
 
+import collections
 import functools
+import threading
 from typing import Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -38,7 +44,8 @@ from lk_tpu_torch.ops import finish as _finish_ops
 from lk_tpu_torch.ops.rasterize import build_roi_masks
 from lk_tpu_torch.ops.resize import resize_area
 from lk_tpu_torch.pipeline.state import (CompactChunkOutputs, FrameOutputs,
-                                         PipelineState, init_pipeline_state,
+                                         PipelineState, RowSpill,
+                                         init_pipeline_state,
                                          without_stream_axis)
 from lk_tpu_torch.pipeline.step import (make_step, preprocess_frame,
                                         tracker_row_band)
@@ -78,7 +85,7 @@ def _compact_masked_rows(rows: torch.Tensor, mask: torch.Tensor, cap: int):
 def _compact_chunk_outputs(outs: FrameOutputs,
                            cap_per_frame: int) -> CompactChunkOutputs:
     """(B, T, ...) FrameOutputs -> CompactChunkOutputs with a
-    T * cap_per_frame row budget."""
+    T * cap_per_frame row budget, the uncompacted rows kept as its spill."""
     t = outs.show_mask.shape[-1]
     cap = cap_per_frame * t
     upd_rows, upd_counts = _compact_masked_rows(outs.update_rows,
@@ -98,9 +105,11 @@ def _compact_chunk_outputs(outs: FrameOutputs,
         motion_labels=torch.zeros(outs.motion_labels.shape[:-1] + (0,),
                                   dtype=torch.int32, device=dev),
     )
+    spill = RowSpill(outs.update_rows, outs.update_mask, outs.cp_xy,
+                     outs.cp_mask)
     return CompactChunkOutputs(upd_rows=upd_rows, upd_counts=upd_counts,
                                cp_rows=cp_rows, cp_counts=cp_counts,
-                               rest=rest)
+                               rest=rest, spill=spill)
 
 
 def _stack_frames(frames: List[FrameOutputs], dim: int) -> FrameOutputs:
@@ -158,34 +167,197 @@ def _cached_preprocess(cfg: PipelineConfig, frame_size: Tuple[int, int],
     return pre
 
 
+# Keys whose frame graph a batched runner keeps; the least recently used
+# goes first, and its memory pool with it.  0: every chunk op by op (as a
+# caller that rebinds a kernel's module name needs: a graph replays what
+# it captured).
+CHUNK_GRAPHS = 4
+
+# Batched chunks by how they ran: ``captures`` (a key's frame graph
+# captured), ``replays`` (a chunk's frames replayed through the graph) and
+# ``eager`` (op by op: a key's first chunk, every chunk with a
+# ``frame_hook`` and every chunk off the card).
+chunk_graph_counts = {"captures": 0, "replays": 0, "eager": 0}
+
+_capture_lock = threading.Lock()     # one capture at a time in the process
+
+
+def reset_counters() -> None:
+    for k in chunk_graph_counts:
+        chunk_graph_counts[k] = 0
+
+
+def _leaves(tree) -> list:
+    """The tensors of a nested NamedTuple, in order (None leaves skipped)."""
+    if tree is None:
+        return []
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [x for t in tree for x in _leaves(t)]
+
+
+def _rebuild(like, leaves):
+    """``like`` (tuples and NamedTuples of tensors) with its tensors
+    replaced, in order, from the iterator ``leaves``."""
+    if like is None:
+        return None
+    if isinstance(like, torch.Tensor):
+        return next(leaves)
+    items = [_rebuild(x, leaves) for x in like]
+    return type(like)(*items) if hasattr(like, "_fields") else tuple(items)
+
+
+def _cloned(tree):
+    """A contiguous copy of every tensor of ``tree``."""
+    return _rebuild(tree, iter(
+        [t.clone(memory_format=torch.contiguous_format)
+         for t in _leaves(tree)]))
+
+
+class _FrameProgram:
+    """One key's frame graph: a batched step, ``static``, from a static
+    carry (states, tracker fold) and frame batch, which writes its new
+    carry back into the static one and its outputs into its own memory."""
+
+    def __init__(self):
+        self.lock = threading.Lock()     # copy-in to clone-out
+        self.graph = None
+        self.carry = self.gray = self.outs = None
+
+    def capture(self, step_batched, carry, gray) -> None:
+        """Capture the step on a side stream from static tensors shaped as
+        ``carry`` and ``gray`` (their contents are not read).  As for the
+        dense pair graph, ``torch.cuda.graph``'s synchronize, garbage
+        collection and ``empty_cache`` are left out."""
+        self.carry = _rebuild(carry, iter(
+            [torch.empty_like(t, memory_format=torch.contiguous_format)
+             for t in _leaves(carry)]))
+        self.gray = torch.empty_like(gray,
+                                     memory_format=torch.contiguous_format)
+        graph = torch.cuda.CUDAGraph()
+        with _capture_lock, torch.cuda.stream(torch.cuda.Stream()):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                outs = self.step_in_place(step_batched)
+            finally:
+                graph.capture_end()
+        self.graph, self.outs = graph, outs
+        chunk_graph_counts["captures"] += 1
+
+    def step_in_place(self, step_batched):
+        """The captured work: one ``static`` step of the static carry and
+        frame batch, its new carry written back into the static carry;
+        returns the frame's outputs.  A new tensor that shares memory with
+        the static carry (passed through, or a view) is copied first, so
+        the write-back cannot change an output or a later source."""
+        carry, outs = step_batched(self.carry, self.gray, True)
+        held = {t.untyped_storage().data_ptr() for t in _leaves(self.carry)}
+
+        def apart(t):
+            return t.clone() if t.untyped_storage().data_ptr() in held else t
+
+        outs = _rebuild(outs, iter([apart(t) for t in _leaves(outs)]))
+        for dst, src in zip(_leaves(self.carry),
+                            [apart(t) for t in _leaves(carry)]):
+            dst.copy_(src)
+        return outs
+
+    def run(self, carry, frames: torch.Tensor):
+        """Copy ``carry`` in, replay each frame of ``frames`` (B, T, H, W)
+        and clone its outputs out of the graph's memory; returns the
+        states after the last frame and the per-frame outputs, none of
+        them sharing memory with a later replay."""
+        for dst, src in zip(_leaves(self.carry), _leaves(carry)):
+            dst.copy_(src)
+        outs = []
+        for t in range(frames.shape[1]):
+            self.gray.copy_(frames[:, t])
+            self.graph.replay()
+            outs.append(_cloned(self.outs))
+        chunk_graph_counts["replays"] += 1
+        return _cloned(self.carry[0]), outs
+
+
 @functools.lru_cache(maxsize=16)
 def make_batched_chunk_runner(cfg: PipelineConfig,
                               frame_size: Tuple[int, int], device="cuda"):
     """(run_chunk_b, init_fn, masks) for one geometry on ``device``.
 
-    run_chunk_b(states, frames (B, T, H, W)) -> (states, outputs (B, T, ...)
-    or their compaction with ``cfg.out_cap``): the tracker fold is seeded
-    from ``states.prev_gray`` and carried frame to frame.
+    run_chunk_b(states, frames (B, T, H, W), frame_hook=None) -> (states,
+    outputs (B, T, ...) or their compaction with ``cfg.out_cap``): the
+    tracker fold is seeded from ``states.prev_gray`` and carried frame to
+    frame; ``frame_hook(t, states, outputs)``, when given, sees each frame's
+    new states and uncompacted outputs (B, ...) as the chunk steps (a
+    frame-by-frame replay of a chunk reads them).  On the card a chunk
+    with no ``frame_hook`` and no capture under way steps its frames
+    through its key's CUDA graph of one batched step (the key: the states'
+    and a frame batch's shapes and types, device and stream): the key's
+    first chunk runs op by op, so every kernel and cache is built outside
+    a capture, and then captures; later chunks copy the carry in, replay
+    once a frame and clone the outputs out.  The graph's step is
+    ``step_batched``'s ``static`` form, which gives the op-by-op step's
+    bits with no host read (tests/test_torch_vp_graph.py).
     init_fn(first_gray (B, H, W)) -> states with the first detection."""
     width, height = frame_size
     roi_mask, sub_masks = build_roi_masks(width, height, cfg.roi)
     _, detect, step_batched = make_step(cfg, frame_size, roi_mask, sub_masks,
                                         device=device)
     row_band = tracker_row_band(cfg, height, sub_masks)
+    graphs: collections.OrderedDict = collections.OrderedDict()
+    graphs_lock = threading.Lock()
 
-    def run_chunk_b(states: PipelineState, frames: torch.Tensor):
+    def fold(states: PipelineState):
         with span("tracker.fold"):
-            carry = (states, fold_tracking_levels(states.prev_gray, cfg.lk,
-                                                  row_band=row_band))
+            return (states, fold_tracking_levels(states.prev_gray, cfg.lk,
+                                                 row_band=row_band))
+
+    def step_frames(carry, frames: torch.Tensor, frame_hook):
         outs = []
         for t in range(frames.shape[1]):
             carry, o = step_batched(carry, frames[:, t])
             outs.append(o)
+            if frame_hook is not None:
+                frame_hook(t, carry[0], o)
+        return carry[0], outs
+
+    def program(states: PipelineState, frames: torch.Tensor):
+        """The key's frame program, None off the graph path."""
+        if (not frames.is_cuda or CHUNK_GRAPHS <= 0
+                or torch.cuda.is_current_stream_capturing()):
+            return None
+        key = (tuple((t.shape, t.dtype) for t in _leaves(states)),
+               frames.shape[:1] + frames.shape[2:], frames.dtype,
+               frames.device.index, torch.cuda.current_stream().cuda_stream)
+        with graphs_lock:
+            prog = graphs.get(key)
+            if prog is None:
+                prog = graphs[key] = _FrameProgram()
+                while len(graphs) > CHUNK_GRAPHS:
+                    graphs.popitem(last=False)
+            else:
+                graphs.move_to_end(key)
+        return prog
+
+    def run_chunk_b(states: PipelineState, frames: torch.Tensor,
+                    frame_hook=None):
+        prog = None if frame_hook is not None else program(states, frames)
+        carry = fold(states)
+        if prog is None:
+            chunk_graph_counts["eager"] += 1
+            states, outs = step_frames(carry, frames, frame_hook)
+        else:
+            with prog.lock, torch.cuda.device(frames.device):
+                if prog.graph is None:
+                    chunk_graph_counts["eager"] += 1
+                    states, outs = step_frames(carry, frames, None)
+                    prog.capture(step_batched, carry, frames[:, 0])
+                else:
+                    states, outs = prog.run(carry, frames)
         outs = _stack_frames(outs, dim=1)
         if cfg.out_cap > 0:
             with span("serve.compact"):
                 outs = _compact_chunk_outputs(outs, cfg.out_cap)
-        return carry[0], outs
+        return states, outs
 
     def init_fn(first_gray: torch.Tensor) -> PipelineState:
         st = init_pipeline_state(first_gray, cfg)
@@ -197,16 +369,18 @@ def make_batched_chunk_runner(cfg: PipelineConfig,
 
 def _to_numpy(tree):
     """A NamedTuple of tensors (nested) -> the same of numpy arrays (numpy
-    leaves pass through)."""
+    leaves and None pass through)."""
     if isinstance(tree, torch.Tensor):
         return tree.cpu().numpy()
-    if isinstance(tree, np.ndarray):
+    if tree is None or isinstance(tree, np.ndarray):
         return tree
     return type(tree)(*(_to_numpy(x) for x in tree))
 
 
 def _index(tree, b: int):
-    if isinstance(tree, np.ndarray):
+    if tree is None:
+        return None
+    if isinstance(tree, (np.ndarray, torch.Tensor)):
         return tree[b]
     return type(tree)(*(_index(x, b) for x in tree))
 
@@ -247,6 +421,9 @@ class VideoPipeline:
         self.motion_rows: List[Tuple[float, ...]] = []
         self.vp_per_frame: List[Optional[Tuple[float, float]]] = []
         self.frames_done = 0
+        # chunks whose rows overflowed the out_cap budget and were drained
+        # from the uncompacted spill
+        self.spilled_chunks = 0
         # True once the first fed frame was used for initialization (fresh
         # runs); resumed runs process every fed frame
         self.consumed_init_frame = False
@@ -330,9 +507,14 @@ class VideoPipeline:
         """Append one stream's chunk outputs ((T, ...) tensors or numpy);
         only the first ``n_valid`` frames belong to the stream (ragged
         lifecycles: ``MultiStreamPipeline`` keeps stepping a finished slot
-        until it is recycled, and its outputs are dropped here)."""
-        outs = _to_numpy(outs)
+        until it is recycled, and its outputs are dropped here).  Compacted
+        outputs whose rows overflow their budget are read from their
+        spill, which stays on the device otherwise."""
         compact = isinstance(outs, CompactChunkOutputs)
+        spill = None
+        if compact:
+            spill, outs = outs.spill, outs._replace(spill=None)
+        outs = _to_numpy(outs)
         if compact:
             comp, outs = outs, outs.rest
         t = outs.show_mask.shape[0]
@@ -352,10 +534,16 @@ class VideoPipeline:
             n_upd = int(upd_counts.sum())
             n_cp = int(cp_counts.sum())
             if n_upd > cap or n_cp > cap:
-                raise RuntimeError(
-                    f"output compaction overflow: chunk emitted "
-                    f"{max(n_upd, n_cp)} rows > budget {cap}; raise "
-                    f"PipelineConfig.out_cap (or set 0 to disable)")
+                if spill is None:
+                    raise RuntimeError(
+                        f"output compaction overflow: chunk emitted "
+                        f"{max(n_upd, n_cp)} rows > budget {cap} and kept "
+                        f"no spill; raise PipelineConfig.out_cap (or set 0 "
+                        f"to disable)")
+                self.spilled_chunks += 1
+                compact = False
+                outs = outs._replace(**_to_numpy(spill)._asdict())
+        if compact:
             upd_rows = np.asarray(comp.upd_rows, np.float64)[:n_upd]
             cp_rows = np.asarray(comp.cp_rows, np.float64)[:n_cp]
             upd_frame = np.repeat(np.arange(nv), upd_counts)
@@ -462,6 +650,8 @@ class MultiStreamPipeline:
             cfg, (self.width, self.height), self.device)
         self._finish = _cached_finish(cfg)
         self.states: Optional[PipelineState] = None
+        # the last chunk's outputs on the device, as the drain will read them
+        self.last_outputs = None
         # pending entries: (chunk outputs, per-slot n_valid | None, sinks)
         self._pending: List[tuple] = []
         self.drain_every = 16
@@ -552,7 +742,9 @@ class MultiStreamPipeline:
             p.consumed_init_frame = True
 
     def _run_chunk(self, grays: torch.Tensor, n_valid) -> None:
-        self.states, outs = self._run(self.states, grays)
+        with span("serve.chunk"):
+            self.states, outs = self._run(self.states, grays)
+        self.last_outputs = outs
         # the sinks ride along, so a later assign_stream cannot take this
         # chunk's rows from the sink that owned the slot
         self._pending.append((outs, self._chunk_valid(grays.shape[1],
@@ -641,15 +833,27 @@ class MultiStreamPipeline:
     def _drain_now(self, pending) -> None:
         with span("serve.drain"):
             for outs, nv, pipes in pending:
+                spill = getattr(outs, "spill", None)
+                if spill is not None:       # read only where it overflows
+                    outs = outs._replace(spill=None)
                 host = _to_numpy(outs)
                 for b, p in enumerate(pipes):
-                    p._drain(_index(host, b),
+                    mine = _index(host, b)
+                    if spill is not None:
+                        mine = mine._replace(spill=_index(spill, b))
+                    p._drain(mine,
                              n_valid=None if nv is None else int(nv[b]))
 
     @property
     def frames_done(self) -> int:
         return sum(p.frames_done for p in self.pipes) + sum(
             p.frames_done for p in self.retired)
+
+    @property
+    def spilled_chunks(self) -> int:
+        """Stream-chunks drained from their spill (rows over out_cap)."""
+        return sum(p.spilled_chunks for p in self.pipes) + sum(
+            p.spilled_chunks for p in self.retired)
 
 
 def _swap_slot(states, fresh, b: int):

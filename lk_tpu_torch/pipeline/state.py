@@ -11,7 +11,7 @@ port's batched layout, so both packages can run on from the same state.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -53,17 +53,30 @@ class FrameOutputs(NamedTuple):
     motion_fracs: torch.Tensor  # (4,) static/away/toward/lateral fractions
 
 
+class RowSpill(NamedTuple):
+    """A chunk's uncompacted row fields, (B, T, P, ...) as ``FrameOutputs``
+    stacks them."""
+    update_rows: torch.Tensor
+    update_mask: torch.Tensor
+    cp_xy: torch.Tensor
+    cp_mask: torch.Tensor
+
+
 class CompactChunkOutputs(NamedTuple):
     """Chunk outputs with the pair-capacity rows compacted
     (``PipelineConfig.out_cap``): the masked update rows and accepted cross
     points of all T frames moved, in (frame, slot) order, to the front of a
     ``T * out_cap`` buffer, with exact per-frame counts.  The host
-    reconstructs the identical row streams and raises on overflow."""
+    reconstructs the identical row streams.  ``spill`` keeps the
+    uncompacted rows on the device until the drain: a stream whose chunk
+    emitted more rows than the budget holds is read from it instead, so
+    the budget bounds what the host usually reads, never what it gets."""
     upd_rows: torch.Tensor    # (B, K, 2) f32
     upd_counts: torch.Tensor  # (B, T) — rows per frame (exact, pre-cap)
     cp_rows: torch.Tensor     # (B, K, 2) f32
     cp_counts: torch.Tensor   # (B, T)
     rest: FrameOutputs        # the row/CP fields and overlay fields emptied
+    spill: Optional[RowSpill] = None
 
 
 def slots_per_group(cfg: PipelineConfig) -> int:

@@ -133,9 +133,11 @@ def make_step(cfg: PipelineConfig, frame_size: Tuple[int, int],
         pts = torch.where(pval[..., :s, None], pxy[..., :s, :], 0.0)
         return pts, pval[..., :s]
 
-    def _pre(state: PipelineState, p1, st):
+    def _pre(state: PipelineState, p1, st, static: bool = False):
         """Containment, flow lines, VP scan, show/hide and the replenish
-        trigger of B streams."""
+        trigger of B streams.  ``static``: no host read, for a CUDA graph's
+        capture: the scan runs over every pair (steps past a stream's
+        candidates change nothing) and the detection always runs."""
         b = p1.shape[0]
         flat_pts = state.pts.reshape(b, g * s, 2)
         st = check_inside(p1, roi_t, st)
@@ -163,9 +165,11 @@ def make_step(cfg: PipelineConfig, frame_size: Tuple[int, int],
         with span("step.vp_scan"):
             cps_c, cand_c, n_cand = frame_candidates(stats_all, accepted, cfg,
                                                      (width, height))
-            # the one host read of the frame
-            n_steps, any_trigger = torch.stack(
-                [n_cand.max(), trigger.any().to(n_cand.dtype)]).tolist()
+            if static:
+                n_steps, any_trigger = cand_c.shape[1], True
+            else:               # the one host read of the frame
+                n_steps, any_trigger = torch.stack(
+                    [n_cand.max(), trigger.any().to(n_cand.dtype)]).tolist()
             vp_state, geom = process_frame_pairs(
                 state.vp, cps_c, cand_c, int(n_steps), cfg, (width, height))
             vp_state, geom = vp_show_step(vp_state, geom, cfg)
@@ -251,16 +255,17 @@ def make_step(cfg: PipelineConfig, frame_size: Tuple[int, int],
         states, outs = _post(states, grays, ctx, *_detect_if(ctx, grays))
         return without_stream_axis(states), without_stream_axis(outs)
 
-    def step_batched(carry, grays: torch.Tensor):
+    def step_batched(carry, grays: torch.Tensor, static: bool = False):
         """Step B streams at once; carry = (states, prev_folded), the
-        previous frame batch's tracker fold (``fold_tracking_levels``)."""
+        previous frame batch's tracker fold (``fold_tracking_levels``).
+        ``static`` (``_pre``) gives the same bits with no host read."""
         states, prev_folded = carry
         grays = grays.to(torch.float32)
         b = grays.shape[0]
         p1, st, _err, next_folded = track_points_batched_prepped(
             prev_folded, grays, states.pts.reshape(b, g * s, 2),
             states.valid.reshape(b, g * s), cfg.lk, row_band=row_band)
-        ctx = _pre(states, p1, st)
+        ctx = _pre(states, p1, st, static)
         states, outs = _post(states, grays, ctx, *_detect_if(ctx, grays))
         return (states, next_folded), outs
 

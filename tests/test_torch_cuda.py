@@ -569,25 +569,33 @@ def test_precomputed_level_matches_plain(cuda_device, case, shape,
 # --- the apps on the card ----------------------------------------------------
 
 def _reset_all():
-    for m in (blur, finish, sparse, lk, wk):
+    from lk_tpu_torch.pipeline import runner
+
+    for m in (blur, finish, sparse, lk, wk, runner):
         m.reset_counters()
 
 
 class _PlainTracker:
     """Context: the per-point and batched trackers' pyramid, the finish
     and the gather through their plain versions (module attributes looked
-    up at call time)."""
+    up at call time), the batched chunks op by op (a chunk graph would
+    replay the kernels it captured)."""
 
     def __enter__(self):
+        from lk_tpu_torch.pipeline import runner
+
         self.old = (sparse.build_pyramid, finish.fused_finish,
-                    sparse.gather_windows)
+                    sparse.gather_windows, runner.CHUNK_GRAPHS)
         sparse.build_pyramid = blur.build_pyramid_reference
         finish.fused_finish = finish.fused_finish_reference
         sparse.gather_windows = sparse.gather_windows_reference
+        runner.CHUNK_GRAPHS = 0
 
     def __exit__(self, *exc):
+        from lk_tpu_torch.pipeline import runner
+
         (sparse.build_pyramid, finish.fused_finish,
-         sparse.gather_windows) = self.old
+         sparse.gather_windows, runner.CHUNK_GRAPHS) = self.old
 
 
 @pytest.mark.cuda
@@ -671,18 +679,26 @@ def test_tracker_app_on_card(cuda_device, app):
 def test_serve_on_card(cuda_device):
     """serve's run_server on the card (4 streams, 17 frames, chunk 8, both
     passes counted): the finish once per chunk + the init frame, the
-    gather 3 times and the pyramid once per processed frame plus once per
-    chunk, no plain call; rows within 1e-4 px of the plain versions."""
+    pyramid once per chunk (the chunk's first fold); a chunk run op by op
+    launches the gather 3 times and the pyramid once per frame, and so
+    does the one captured frame (a replay launches neither from the
+    host); every chunk but the key's first replays its frame graph; no
+    plain call; rows within 1e-4 px of the plain versions."""
     from lk_tpu_torch.apps import serve
+    from lk_tpu_torch.pipeline import runner
 
     args = serve.build_parser().parse_args(
         ["--streams", "4", "--frames", "17", "--chunk", "8", "--quiet"])
     _reset_all()
     run = serve.run_server(args)
-    chunks, frames = 2, 16
+    chunks, per_chunk = 2, 8
+    counts = runner.chunk_graph_counts
+    stepped = counts["eager"] * per_chunk + counts["captures"]
+    assert counts["eager"] + counts["replays"] == 2 * chunks
+    assert counts["replays"] >= 2 * chunks - 1
     assert finish.kernel_launches == 2 * (chunks + 1)
-    assert sparse.kernel_launches == 2 * 3 * frames
-    assert blur.kernel_launches == 2 * (frames + chunks)
+    assert sparse.kernel_launches == 3 * stepped
+    assert blur.kernel_launches == 2 * chunks + stepped
     assert finish.plain_calls + sparse.plain_calls + blur.plain_calls == 0
     with _PlainTracker():
         ref = serve.run_server(args)
@@ -691,6 +707,52 @@ def test_serve_on_card(cuda_device):
         y = np.array(b.csv_rows, np.float64).reshape(-1, 2)
         assert x.shape == y.shape and len(x) > 0
         assert float(np.abs(x - y).max(initial=0.0)) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_serve_spill_on_card(cuda_device):
+    """serve on the card with a budget of one row per frame: every chunk
+    overflows, the drains read the spill from the card, and the sinks equal
+    those of the default budget's run exactly."""
+    from lk_tpu_torch.apps import serve
+
+    argv = ["--streams", "4", "--frames", "17", "--chunk", "8", "--quiet"]
+    tight = serve.run_server(serve.build_parser().parse_args(
+        argv + ["--out-cap", "1"]))
+    wide = serve.run_server(serve.build_parser().parse_args(argv))
+    assert tight.server.spilled_chunks > 0
+    for a, b in zip(tight.server.pipes, wide.server.pipes):
+        assert a.csv_rows == b.csv_rows and len(a.csv_rows) > 0
+        assert a.cross_points == b.cross_points
+        assert a.vp_per_frame == b.vp_per_frame
+
+
+@pytest.mark.cuda
+def test_fleet_chunk_graph_on_card(cuda_device):
+    """The fleet cell cut to 4 streams of 320x180 on the card: its chunks
+    replay their CUDA graphs (captured in the warm-up), and the check's
+    frame-by-frame replay, op by op, gives the graphs' outputs and end
+    states bit for bit; the cell's check passes."""
+    from gpubench import harness
+    from gpubench.tests._tiny_fleet import tiny_fleet_spec
+    from lk_tpu_torch.pipeline import runner
+
+    spec = tiny_fleet_spec()
+    runner.reset_counters()
+    cell = harness.make_cell(spec, 2 ** 31 + 9, "cuda")
+    cell.setup()
+    cell._reset()
+    before = dict(runner.chunk_graph_counts)
+    for _ in range(4):
+        cell.step()
+    cell.server.drain()
+    cell.release()
+    assert runner.chunk_graph_counts["replays"] - before["replays"] == 4
+    assert runner.chunk_graph_counts["eager"] == before["eager"]
+    out = cell.compare()
+    assert out["replay_mismatch"] == 0 and out["drain_mismatch"] == 0
+    limits = spec.traffic["check"]["limits"]
+    assert all(v <= limits[k] for k, v in out.items()), out
 
 
 # ---------------------------------------------------------------------------

@@ -55,6 +55,15 @@ def _same_rows(a, b):
     assert len(a.segments) == len(b.segments)
 
 
+def test_overflowing_budget_spills_exactly(frames, full):
+    """With a budget of one row per frame every chunk overflows: the drain
+    reads the spill and the sinks equal the uncapped run's."""
+    p = _pipe(dataclasses.replace(CFG, out_cap=1))
+    p.run(iter(frames))
+    assert p.spilled_chunks > 0
+    _same_rows(p, full)
+
+
 # --- checkpoints -------------------------------------------------------------
 
 def test_split_run_matches_continuous(frames, full, tmp_path):

@@ -122,12 +122,33 @@ def test_capped_equals_uncapped(port_runs):
             np.testing.assert_array_equal(a["stop"], b["stop"])
 
 
-def test_compaction_overflow_raises(staging):
+def test_compaction_overflow_raises(staging, port_runs):
+    """A chunk that emits more rows than its budget is drained from the
+    spill the compaction keeps: the rows equal the uncapped transport's.
+    Only compacted outputs that lost their spill raise on overflow."""
     ms = trunner.MultiStreamPipeline(
         port_cfg(dataclasses.replace(CFG, out_cap=1)), src_size=(W, H),
         n_streams=B, chunk=CHUNK, device="cpu")
+    ms.drain_every = 1000
+    st = torch.from_numpy(staging)
+    ms.feed_staged(st, 0, CHUNK + 1)
+    pending = list(ms._pending)
+    t = CHUNK + 1
+    while t < F:
+        n = min(CHUNK, F - t)
+        ms.feed_staged(st, t, n)
+        t += n
+    ms.drain()
+    assert ms.spilled_chunks > 0
+    for p, q in zip(ms.pipes, port_runs[0].pipes):
+        assert p.csv_rows == q.csv_rows and len(p.csv_rows) > 10
+        assert p.cross_points == q.cross_points
+        assert p.vp_per_frame == q.vp_per_frame
+    outs, _, _ = pending[0]
+    sink = ms._sink()
     with pytest.raises(RuntimeError, match="compaction overflow"):
-        _feed(ms, torch.from_numpy(staging))
+        for b in range(B):
+            sink._drain(trunner._index(outs._replace(spill=None), b))
 
 
 @pytest.fixture(scope="module")

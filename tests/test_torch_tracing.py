@@ -191,3 +191,43 @@ def test_spans_totals_and_profile_ranges():
     for name, least in (("sp.a", 0.04), ("sp.b", 0.01)):
         traced = sum(r[2] - r[1] for r in rs if r[0] == name) * 1e-6
         assert least <= s.total[name] <= traced + 1e-4
+
+
+def test_serving_chunk_spans(monkeypatch):
+    """``MultiStreamPipeline`` opens one ``serve.chunk`` per chunk around
+    the chunk's step (the tracker's fold, every frame's step, the output
+    compaction), with the finish outside it; with no profiler, none."""
+    from lk_tpu_torch import config as tc
+    from lk_tpu_torch.pipeline.runner import MultiStreamPipeline
+
+    # flat frames: no corners, so the steps stay short (the spans, not the
+    # tracking, are under test)
+    pcfg = tc.PipelineConfig(width=256, out_cap=8)
+    staging = torch.full((5, 1, 128, 256), 128, dtype=torch.uint8)
+
+    def serve():
+        ms = MultiStreamPipeline(pcfg, src_size=(256, 128), n_streams=1,
+                                 chunk=2, device="cpu")
+        ms.feed_staged(staging, 0, 3)
+        ms.feed_staged(staging, 3, 2)
+        return ms
+
+    opened = []
+    real = profiling.record_function
+    monkeypatch.setattr(profiling, "record_function",
+                        lambda name: opened.append(name) or real(name))
+    serve()
+    assert opened == []
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        ms = serve()
+    assert ms.last_outputs is not None
+    rs = ranges(prof, ("serve.", "tracker.fold", "step.vp_scan"))
+    chunks = [r for r in rs if r[0] == "serve.chunk"]
+    assert len(chunks) == 2
+    for name in ("tracker.fold", "serve.compact", "step.vp_scan"):
+        inner = [r for r in rs if r[0] == name]
+        assert inner and all(sum(inside(r, c) for c in chunks) == 1
+                             for r in inner)
+    finishes = [r for r in rs if r[0] == "serve.finish"]
+    assert len(finishes) == 3
+    assert not any(inside(r, c) for r in finishes for c in chunks)
