@@ -76,9 +76,12 @@ run_vp_app runs it.
      staging array;
  11. serving main path: one pass of MultiStreamPipeline.feed_staged +
      drain, counters reset just before and read just after (the finish
-     kernel once per chunk plus once for the init frame, the window gather
-     three times per processed frame, the tracker's pyramid once per
-     processed frame and once per chunk, no plain call); every stream runs
+     kernel once per chunk plus once for the init frame; the window gather
+     three times, the tracker's pyramid and the VP pair scan once per
+     frame stepped from the host, that is every frame of the chunk run op
+     by op and the frame graph's capture, the replayed chunks launching
+     none; the pyramid once more per chunk; no plain call); every stream
+     runs
      63 frames, the mean late-trajectory VP error is < 25 px
      (tests/test_pipeline_e2e.py's bound); the first 4 streams run again
      through the plain versions on the card give the same csv rows;
@@ -86,8 +89,10 @@ run_vp_app runs it.
      860) u8 with and without the tone curve and on odd shapes (W % 4 !=
      0, 2x2, 70,000 frames, f32, an unaligned base), torch.equal, the
      gather on the three folded levels of the 64-stream batch with the
-     tracker's frame-major point set and a shuffled one; device and
-     CUDA-event ms per launch;
+     tracker's frame-major point set and a shuffled one; the VP pair
+     scan on the 64 streams' inputs of the first chunk's 16 steps (P =
+     190 pairs), bit-equal to process_frame_pairs_reference at the step's
+     n_steps and at n_steps = P; device and CUDA-event ms per launch;
  13. serving timing: aggregate stream-frames/s with CUDA events around
      whole feed_staged + drain passes after the warm-up pass of phase 11;
  14. only with --profile: the serving pass's device and host time by
@@ -95,8 +100,9 @@ run_vp_app runs it.
  15. single-stream main path: one synthetic 1080p road scene with a
      planted VP, 97 BGR frames (the init frame + 6 chunks of 16), run
      through VideoPipeline.run(prefetch=2) with the counters reset just
-     before and read just after (the tracker's pyramid once per tracked
-     frame, 96; the finish and the window gather never; no plain call);
+     before and read just after (the tracker's pyramid and the pair scan
+     once per tracked frame, 96; the finish and the window gather never;
+     no plain call);
      the late-trajectory VP error < 25 px;
  16. single-stream timing: ms per tracked frame of whole run calls (CUDA
      events, after phase 15's run), prefetch 0, prefetch 2 and the plain
@@ -109,24 +115,23 @@ run_vp_app runs it.
  18. the VP apps: ``lk_tpu_torch.apps.{final,vp_detect,classify}.main``
      with --synthetic (the package's 1280x720 stream, rendered on the
      card), 49 frames (the init frame + 3 chunks of 16), --out-dir a
-     temporary directory, counted (one pyramid launch per tracked frame,
-     48, no other kernel, no plain call); a well-formed vps_synthetic.csv,
-     the late-trajectory VP error < 25 px, classify's motion csv; rows,
-     shown VPs and segments equal (np.array_equal) to the same app run
-     with the plain pyramid; ms per tracked frame and frames/s of each
-     counted run (host clock around main, synchronized);
+     temporary directory, counted (one pyramid and one pair-scan launch
+     per tracked frame, 48, no other kernel, no plain call); a
+     well-formed vps_synthetic.csv, the late-trajectory VP error < 25 px,
+     classify's motion csv; rows, shown VPs and segments equal
+     (np.array_equal) to the same app run with the plain pyramid; ms per
+     tracked frame and frames/s of each counted run (host clock around
+     main, synchronized);
  19. the tracker apps: ``masking.compute`` and ``roadlines.compute`` at
      their 960-px width on 33 frames, counted (one pyramid launch per
-     tracked frame, 32, no plain call), segments equal to the plain-
-     pyramid run, roadlines' Hough result on the card within 1e-4 rad
-     (theta) and 1e-2 px (rho) of the same call on the CPU;
+     tracked frame, 32, no other kernel, no plain call), segments equal
+     to the plain-pyramid run, roadlines' Hough result on the card within
+     1e-4 rad (theta) and 1e-2 px (rho) of the same call on the CPU;
  20. the serving app: ``serve.run_server`` at its defaults (32 streams,
      64 frames, 1280x720 source staged on the card at 860x483), then with
-     --async-drains, each counted over its warm-up and timed passes (the
-     finish once per chunk and once for the init frame, the gather 3
-     times and the pyramid once per processed frame plus once per chunk,
-     no plain call), every stream with VP output, the mean VP error < 25
-     px; the async run's rows equal the sync run's, and the first 4
+     --async-drains, each counted over its warm-up and timed passes as
+     phase 11 (no plain call), every stream with VP output, the mean VP
+     error < 25 px; the async run's rows equal the sync run's, and the first 4
      streams' rows within ROWS_TOL of a 4-stream run through the plain
      versions; the aggregate frames/s of each timed pass.
 
@@ -144,9 +149,8 @@ Phases 18-20 print their wall time.
 Prints a {"kernels": [...]} JSON line (each entry's "ms" is the kernel's
 own device time per call from torch.profiler, its launches counted in the
 trace, "event_ms" the CUDA-event time around the wrapper's calls; the
-pyramid's "launches" are the dense video's, "single_stream_launches" phase
-15's), the
-card line, and as the last line
+pyramid's "launches" are the dense video's, the serving kernels' phase
+11's, "single_stream_launches" phase 15's), the card line, and as the last line
 {"ok": true, "device": {...}}.  Any failed check raises: the exit code is
 then non-zero and no result line is printed.  Without a CUDA device, or run
 from a directory without the package, it exits non-zero at once.
@@ -345,9 +349,12 @@ def plain_local_warp():
 def reset_counters() -> None:
     """Every kernel wrapper's launch and plain-call counts to 0."""
     from lk_tpu_torch.flow import lk_kernels, sparse, warp_kernels
+    from lk_tpu_torch.geometry import vanishing
     from lk_tpu_torch.ops import blur, finish
+    from lk_tpu_torch.pipeline import runner
 
-    for module in (lk_kernels, finish, sparse, blur, warp_kernels):
+    for module in (lk_kernels, finish, sparse, blur, warp_kernels,
+                   vanishing, runner):
         module.reset_counters()
 
 
@@ -383,13 +390,39 @@ def timed_call(fn, *args, **kw):
 def kernel_counts():
     """(launches of the apps' kernels, plain calls of every kernel)."""
     from lk_tpu_torch.flow import sparse
+    from lk_tpu_torch.geometry import vanishing
     from lk_tpu_torch.ops import blur, finish
 
     _, plain = dense_counts()
     return ({"pyr_down": blur.kernel_launches,
              "finish": finish.kernel_launches,
-             "window_gather": sparse.kernel_launches},
-            plain + finish.plain_calls + sparse.plain_calls)
+             "window_gather": sparse.kernel_launches,
+             "vp_scan": vanishing.kernel_launches},
+            plain + finish.plain_calls + sparse.plain_calls
+            + vanishing.plain_calls)
+
+
+def serving_launches(chunks: int, per_chunk: int = S_CHUNK,
+                     passes: int = 1, graphs: dict | None = None) -> dict:
+    """The launches kernel_counts() should read after ``passes`` serving
+    passes of ``chunks`` chunks each, from how the chunks ran
+    (runner.chunk_graph_counts since the last reset_counters()).  A chunk
+    run op by op steps each of its frames from the host, and so does the
+    capture of a key's frame graph once: the gather 3 times, the pyramid
+    and the pair scan once per such step.  A replayed chunk launches none
+    of them from the host.  The finish runs once a chunk and once for a
+    pass's init frame, the pyramid once more a chunk for its seed.  Every
+    chunk run op by op is a key's first, a whole one.  ``graphs``: another
+    process's chunk_graph_counts."""
+    from lk_tpu_torch.pipeline import runner
+
+    c = runner.chunk_graph_counts if graphs is None else graphs
+    check(c["eager"] + c["replays"] == passes * chunks,
+          f"chunks ran {c}, expected {passes * chunks} in all")
+    stepped = c["eager"] * per_chunk + c["captures"]
+    return {"pyr_down": passes * chunks + stepped,
+            "finish": passes * (chunks + 1),
+            "window_gather": 3 * stepped, "vp_scan": stepped}
 
 
 def plain_tracker_pyramid():
@@ -1558,19 +1591,23 @@ def plain_versions():
     import contextlib
 
     from lk_tpu_torch.flow import sparse
+    from lk_tpu_torch.geometry import vanishing
     from lk_tpu_torch.ops import blur, finish
+    from lk_tpu_torch.pipeline import step
 
     @contextlib.contextmanager
     def ctx():
-        old = finish.fused_finish, sparse.gather_windows, sparse.build_pyramid
+        old = (finish.fused_finish, sparse.gather_windows,
+               sparse.build_pyramid, step.process_frame_pairs)
         finish.fused_finish = finish.fused_finish_reference
         sparse.gather_windows = sparse.gather_windows_reference
         sparse.build_pyramid = blur.build_pyramid_reference
+        step.process_frame_pairs = vanishing.process_frame_pairs_reference
         try:
             yield
         finally:
             (finish.fused_finish, sparse.gather_windows,
-             sparse.build_pyramid) = old
+             sparse.build_pyramid, step.process_frame_pairs) = old
 
     return ctx()
 
@@ -1591,8 +1628,7 @@ def serving_main_path(staging, vps, card):
     """Phase 11: the counted serving pass, its checks, and the 4-stream
     plain-path comparison.  Returns (launch counts, the pass)."""
     import torch
-    from lk_tpu_torch.flow import sparse
-    from lk_tpu_torch.ops import blur, finish
+    from lk_tpu_torch.pipeline import runner
 
     torch.cuda.synchronize()
     reset_counters()
@@ -1600,23 +1636,15 @@ def serving_main_path(staging, vps, card):
     ms = serve_pass(staging)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"finish": finish.kernel_launches,
-                "window_gather": sparse.kernel_launches,
-                "pyr_down": blur.kernel_launches}
-    plain = finish.plain_calls + sparse.plain_calls + blur.plain_calls
+    launches, plain = kernel_counts()
+    want = serving_launches(n_chunks())
     frames = SF - 1
     print(f"[serve] B={SB} {SW}x{SH} chunk {S_CHUNK} out_cap {S_CAP} preset "
-          f"final, {SF} staged frames: launches {launches}, plain calls "
-          f"{plain}, first pass {wall:.2f} s (incl. warm-up)  [{card}]")
+          f"final, {SF} staged frames: chunks {runner.chunk_graph_counts}, "
+          f"launches {launches}, plain calls {plain}, first pass "
+          f"{wall:.2f} s (incl. warm-up)  [{card}]")
     check(plain == 0, f"plain versions ran {plain}x on the card")
-    check(launches["finish"] == n_chunks() + 1,
-          f"finish launches {launches['finish']} != {n_chunks() + 1}")
-    check(launches["window_gather"] == 3 * frames,
-          f"gather launches {launches['window_gather']} != {3 * frames}")
-    # the tracker's pyramid: once per processed frame, once per chunk's seed
-    check(launches["pyr_down"] == frames + n_chunks(),
-          f"pyramid launches {launches['pyr_down']} != "
-          f"{frames + n_chunks()}")
+    check(launches == want, f"launches {launches}, expected {want}")
     check(all(p.frames_done == frames for p in ms.pipes),
           "a stream did not run every frame")
     rows = [np.array(p.csv_rows, np.float64) for p in ms.pipes]
@@ -1652,29 +1680,49 @@ def serving_main_path(staging, vps, card):
     return launches, ms
 
 
-def record_gathers(staging):
-    """The window-gather calls of one frame step of the 64-stream batch
-    (levels 2, 1, 0: the frame-major point set the tracker builds), taken
-    by a recording wrapper around the kernel's wrapper (the step's outputs
-    are not drained)."""
-    from lk_tpu_torch.flow import sparse
-    from lk_tpu_torch.pipeline.runner import MultiStreamPipeline
+def record_calls(staging, module, name, steps):
+    """The calls of ``module.name`` in the first ``steps`` frame steps of
+    the 64-stream batch, taken by a recording wrapper around the kernel's
+    wrapper, the chunk run op by op (a frame graph's capture passes
+    tensors that hold no values yet); the steps' outputs are not
+    drained."""
+    from lk_tpu_torch.pipeline import runner
 
     calls = []
-    real = sparse.gather_windows
+    real = getattr(module, name)
 
     def rec(*args):
         calls.append(args)
         return real(*args)
 
-    sparse.gather_windows = rec
-    try:
-        MultiStreamPipeline(serving_config(), src_size=SRC,
-                            n_streams=SB, chunk=S_CHUNK).feed_staged(
-            staging, 0, 2)
-    finally:
-        sparse.gather_windows = real
+    with patched(runner, "CHUNK_GRAPHS", 0), patched(module, name, rec):
+        runner.MultiStreamPipeline(serving_config(), src_size=SRC,
+                                   n_streams=SB, chunk=S_CHUNK).feed_staged(
+            staging, 0, steps + 1)
     return calls
+
+
+def same_bits(a, b) -> bool:
+    """Equal shapes, dtypes and bits (float32 compared as int32: -0 is not
+    +0, and a NaN equals a NaN of the same payload)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def scan_bound(state, new, cps, cand, out):
+    """Least time of one pair-scan call: its inputs read once and its
+    outputs written once (the carry stays on chip), and ~30 f32
+    operations per ring slot of each candidate's step (the ring's masked
+    sums, its variance, the keep test and the kept sum)."""
+    nbytes = sum(x.numel() * x.element_size()
+                 for x in (*state, *new, cps, cand, *out))
+    steps = int(cand.sum())
+    return bound(nbytes, steps * state.ring_xy.shape[1] * 30)
 
 
 def gather_bound(n, win_h, win_w, sw_h, sw_w):
@@ -1688,11 +1736,13 @@ def gather_bound(n, win_h, win_w, sw_h, sw_w):
 
 
 def serving_kernels(staging, card, reps=20):
-    """Phase 12: the finish and the gather against their plain versions at
-    the serving shapes; returns their report entries."""
+    """Phase 12: the finish, the gather and the pair scan against their
+    plain versions at the serving shapes; returns their report entries."""
     import torch
     from lk_tpu_torch.flow import sparse
+    from lk_tpu_torch.geometry import vanishing
     from lk_tpu_torch.ops import finish
+    from lk_tpu_torch.pipeline import step
 
     def cmp(a, b):
         torch.cuda.synchronize()
@@ -1754,7 +1804,7 @@ def serving_kernels(staging, card, reps=20):
           f"(max|d| {lib_err:.3g}); {FINISH_PARENT}  [{card}]")
 
     # --- gather: the tracker's calls of one frame step, and shuffled -------
-    calls = record_gathers(staging)
+    calls = record_calls(staging, sparse, "gather_windows", 1)
     err_g, ms_g, dms_g, pms_g, b_g, by_g = 0.0, [], [], [], [], set()
     perm_rng = np.random.default_rng(0)
     for i, args in enumerate(calls[-3:]):
@@ -1784,6 +1834,56 @@ def serving_kernels(staging, card, reps=20):
               f"{dms_g[-1] * 1e3:.1f} us (events {ms_g[-1]:.4f} ms), "
               f"plain {pms_g[-1]:.3f} ms, bound {bm:.4f} ms ({bb})  "
               f"[{card}]")
+    del calls
+
+    # --- the VP pair scan: the first chunk's steps, kernel == plain bit for
+    # bit at the step's n_steps (the largest candidate count) and at P (the
+    # frame graph's static step) ---
+    def kept(state, cps, cand, *rest):
+        return (type(state)(*(x.clone() for x in state)), cps.clone(),
+                cand.clone(), *rest)
+
+    calls = [kept(*args) for args in record_calls(
+        staging, step, "process_frame_pairs", S_CHUNK)]
+    check(len(calls) == S_CHUNK, f"{len(calls)} pair-scan calls recorded, "
+          f"expected {S_CHUNK}")
+    counts = []
+    for state, cps, cand, n_steps, cfg_s, size in calls:
+        p = cand.shape[1]
+        kept = [x.clone() for x in (*state, cps, cand)]
+        want = vanishing.process_frame_pairs_reference(state, cps, cand,
+                                                       n_steps, cfg_s, size)
+        for n in (n_steps, p):
+            got = vanishing.process_frame_pairs(state, cps, cand, n, cfg_s,
+                                                size)
+            torch.cuda.synchronize()
+            same = all(same_bits(a, b) for a, b in
+                       zip((*got[0], *got[1]), (*want[0], *want[1])))
+            check(same, f"pair scan B={SB} P={p} n_steps {n}: the kernel's "
+                  f"bits differ from the plain version's")
+        check(all(same_bits(a, b)
+                  for a, b in zip(kept, (*state, cps, cand))),
+              "the pair scan wrote its inputs")
+        counts.append((n_steps, int(cand.sum()),
+                       int(want[1].update_mask.sum())))
+    state, cps, cand, n_steps, cfg_s, size = calls[-1]
+    p = cand.shape[1]
+    new, out = vanishing.process_frame_pairs(state, cps, cand, p, cfg_s, size)
+
+    def scan():
+        vanishing.process_frame_pairs(state, cps, cand, p, cfg_s, size)
+
+    ms_v = cuda_ms(scan, reps)
+    dms_v = device_us(scan, {"vp_scan_kernel": 1}) / 1e3
+    pms_v = cuda_ms(lambda: vanishing.process_frame_pairs_reference(
+        state, cps, cand, n_steps, cfg_s, size), 3)
+    b_v, by_v = scan_bound(state, new, cps, cand, out)
+    print(f"[kernel] vp_scan B={SB} P={p}, steps 1..{S_CHUNK} of the first "
+          f"chunk (n_steps, candidates, updates): {counts}; kernel == plain "
+          f"bit for bit at n_steps and at P, inputs unchanged; the last "
+          f"step: kernel device {dms_v * 1e3:.1f} us (events "
+          f"{ms_v * 1e3:.1f} us), plain op by op {pms_v:.3f} ms, bound "
+          f"{b_v * 1e3:.3f} us ({by_v})  [{card}]")
     return [
         {"name": "finish", "route": "cuda",
          "source": "lk_tpu_torch/csrc/finish.cu",
@@ -1799,6 +1899,12 @@ def serving_kernels(staging, card, reps=20):
          "plain_ms": float(np.mean(pms_g)),
          "bound_ms": float(np.mean(b_g)),
          "bound_by": "bytes" if by_g == {"bytes"} else "operations",
+         "library_ms": None},
+        {"name": "vp_scan", "route": "cuda",
+         "source": "lk_tpu_torch/csrc/vp_scan.cu",
+         "replaces": "lk_tpu/geometry/vanishing.py:213",
+         "max_abs_err": 0.0, "ms": dms_v, "event_ms": ms_v,
+         "plain_ms": pms_v, "bound_ms": b_v, "bound_by": by_v,
          "library_ms": None},
     ]
 
@@ -1963,8 +2069,8 @@ def video_phases(frames, vp, card):
           f"launches per tracked frame), plain calls {plain}, first run "
           f"{wall:.2f} s (incl. warm-up)  [{card}]")
     check(plain == 0, f"plain versions ran {plain}x on the card")
-    check(launches["pyr_down"] == tracked,
-          f"pyramid launches {launches['pyr_down']} != {tracked}")
+    check(launches["pyr_down"] == launches["vp_scan"] == tracked,
+          f"pyramid or pair-scan launches {launches}, expected {tracked}")
     check(launches["finish"] == launches["window_gather"] == 0,
           f"finish or gather launched: {launches}")
     check(run.frames_done == tracked and run.consumed_init_frame,
@@ -2043,8 +2149,9 @@ def vp_app_phase(card):
                     motion = list(csv.reader(f))
         check(plain == 0, f"{app}: plain versions ran {plain}x")
         check(counts == {"pyr_down": tracked, "finish": 0,
-                         "window_gather": 0},
-              f"{app}: launches {counts}, expected {tracked} pyramids")
+                         "window_gather": 0, "vp_scan": tracked},
+              f"{app}: launches {counts}, expected {tracked} pyramids "
+              f"and pair scans")
         check(pipe.frames_done == tracked, f"{app}: {pipe.frames_done} "
               f"frames done")
         check(rows[0] == ["x", "y"] and len(rows) - 1 == len(pipe.csv_rows)
@@ -2104,7 +2211,7 @@ def tracker_app_phase(card):
         counts, plain = kernel_counts()
         check(plain == 0, f"{app}: plain versions ran {plain}x")
         check(counts == {"pyr_down": tracked, "finish": 0,
-                         "window_gather": 0},
+                         "window_gather": 0, "vp_scan": 0},
               f"{app}: launches {counts}, expected {tracked} pyramids")
         check(res.frames == T_FRAMES and res.width == 960,
               f"{app}: {res.frames} frames at width {res.width}")
@@ -2169,10 +2276,8 @@ def serve_app_phase(card):
         run, dt = timed_call(serve.run_server, args)
         counts, plain = kernel_counts()
         frames = args.frames - 1
-        chunks = -(-frames // args.chunk)
-        want = {"pyr_down": 2 * (frames + chunks),
-                "finish": 2 * (chunks + 1),
-                "window_gather": 2 * 3 * frames}
+        want = serving_launches(-(-frames // args.chunk), args.chunk,
+                                passes=2)
         ms = run.server
         check(plain == 0, f"serve {label}: plain versions ran {plain}x")
         check(counts == want, f"serve {label}: launches {counts} over the "
@@ -2344,12 +2449,11 @@ def sharded_serving_phase(staging, ref_rows, unsharded_rates, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, plain = kernel_counts()
+    want = serving_launches(n_chunks())
     frames = SF - 1
     check(plain == 0, f"plain versions ran {plain}x")
-    check(launches == {"pyr_down": frames + n_chunks(),
-                       "finish": n_chunks() + 1,
-                       "window_gather": 3 * frames},
-          f"sharded serving launches {launches}")
+    check(launches == want,
+          f"sharded serving launches {launches}, expected {want}")
     check(ms.streams == slice(0, SB) and len(ms.pipes) == SB,
           f"world 1 holds streams {ms.streams}")
     equal = all(same_sinks(sink_arrays(p), r)
@@ -2537,9 +2641,8 @@ def world2_phase(prev, nxt, ref_rows, card):
     frames = SF - 1
     for r, i in enumerate(info):
         c = i["serve_launches"]
-        check(c == {"pyr_down": frames + n_chunks(), "finish": n_chunks() + 1,
-                    "window_gather": 3 * frames},
-              f"rank {r} serving launches {c}")
+        want = serving_launches(n_chunks(), graphs=i["serve_graphs"])
+        check(c == want, f"rank {r} serving launches {c}, expected {want}")
         check(i["plain"] == 0, f"rank {r}: plain versions ran")
     rates = [SB // P_WORLD * frames / i["walls"]["serving"] for i in info]
     print(f"[parallel] 24 world 2 serving B={SB} ({SB // P_WORLD} per rank) "
@@ -2570,6 +2673,7 @@ def parallel_rank(argv) -> int:
     from lk_tpu_torch.parallel import make_mesh, spatial_dense_lk_level
     from lk_tpu_torch.parallel.mesh import local_rows
     from lk_tpu_torch.parallel.multihost import init_multihost
+    from lk_tpu_torch.pipeline import runner
 
     init_multihost(f"localhost:{args.port}", args.world, args.rank,
                    backend="gloo")
@@ -2603,6 +2707,7 @@ def parallel_rank(argv) -> int:
         ms, sec = timed_call(serve_pass, staging, mesh=streams)
         walls["serving"] = round(sec, 3)
         serve_launches, plain = kernel_counts()
+        serve_graphs = dict(runner.chunk_graph_counts)
         for b, p in zip(range(own.start, own.stop), ms.pipes):
             for k, v in sink_arrays(p).items():
                 res[f"s{b}_{k}"] = v
@@ -2611,6 +2716,7 @@ def parallel_rank(argv) -> int:
             json.dump({"streams": [ms.streams.start, ms.streams.stop],
                        "walls": walls, "plain": plain,
                        "serve_launches": serve_launches,
+                       "serve_graphs": serve_graphs,
                        "spatial_launches": spatial_launches},
                       fh)
     finally:
@@ -2905,6 +3011,9 @@ def main() -> int:
             k, launches=s_launches[k["name"]],
             serve_app_launches=serve_launches[k["name"]],
             parallel_launches=par(k["name"])))
+        if k["name"] == "vp_scan":
+            report["kernels"][-1]["single_stream_launches"] = v_launches[
+                "vp_scan"]
     # launches: the dense video's; the single-stream run's and the apps'
     # beside it
     report["kernels"].append(dict(

@@ -31,7 +31,7 @@ import torch
 _PKG = Path(__file__).resolve().parent
 SOURCES = ("csrc/fused_lk_level.cu", "csrc/finish.cu",
            "csrc/window_gather.cu", "csrc/pyr_down.cu", "csrc/local_warp.cu",
-           "csrc/fused_level_pre.cu")
+           "csrc/fused_level_pre.cu", "csrc/vp_scan.cu")
 HEADERS = ("csrc/warp_tile.cuh",)
 # sm_90a: Hopper.  --fmad=false: no FMA contraction (see the .cu header).
 # -Xptxas -v: registers, shared memory and spills of each kernel, kept in
@@ -119,10 +119,12 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             from lk_tpu_torch.flow import lk_kernels, sparse, warp_kernels
+            from lk_tpu_torch.geometry import vanishing
             from lk_tpu_torch.ops import blur, finish
 
             lib = ctypes.CDLL(str(_compile(build_dir())))
-            for module in (lk_kernels, finish, sparse, blur, warp_kernels):
+            for module in (lk_kernels, finish, sparse, blur, warp_kernels,
+                           vanishing):
                 module.bind(lib)
             _lib = lib
     return _lib

@@ -17,14 +17,20 @@ quirks:
   (scipy.stats.linregress in the reference, LK_Final.py:219-238).
 
 Every leaf of ``VPState`` has a leading stream axis (B, ...).  The pair
-scan is sequential per stream: ``process_frame_pairs`` walks the candidate
-pairs of all B streams together, as many steps as the stream with the most
-candidates has (one host read per frame), masking the streams that are
-done; a step past a stream's last candidate changes nothing of it.
+scan is sequential per stream.  ``process_frame_pairs`` dispatches on the
+device of its inputs: a CPU tensor goes to ``process_frame_pairs_reference``
+(plain PyTorch), which walks the candidate pairs of all B streams together
+for ``n_steps`` steps, masking the streams that are done (a step past a
+stream's last candidate changes nothing of it); a CUDA tensor goes to the
+kernel ``lk_tpu_torch/csrc/vp_scan.cu``, one launch for the B streams, each
+walking its own candidates, with no fallback between the two.  Both give
+the same bits on the card (the kernel takes the plain version's operations
+in their order, the ring sums in the order of PyTorch's CUDA reduction).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Tuple
 
 import torch
@@ -116,16 +122,80 @@ def frame_candidates(lines: FlowLineStats, accepted: torch.Tensor,
     return cps_c, cand.gather(1, order), cand.sum(dim=1)
 
 
+# Kernel launches of the CUDA pair scan, and calls of the plain version.
+kernel_launches = 0
+plain_calls = 0
+
+
+def reset_counters() -> None:
+    global kernel_launches, plain_calls
+    kernel_launches = plain_calls = 0
+
+
+def _check(state: VPState, cps_c: torch.Tensor, cand_c: torch.Tensor,
+           n_steps: int, cfg: PipelineConfig) -> None:
+    if cand_c.ndim != 2 or tuple(cps_c.shape) != (*cand_c.shape, 2):
+        raise ValueError(f"the pair scan takes (B, P, 2) cross points and "
+                         f"(B, P) candidates, got {tuple(cps_c.shape)} and "
+                         f"{tuple(cand_c.shape)}")
+    b, p = cand_c.shape
+    f32, i64, flag = torch.float32, torch.int64, torch.bool
+    want = dict(
+        cps_c=(cps_c, (b, p, 2), f32), cand_c=(cand_c, (b, p), flag),
+        vp_xy=(state.vp_xy, (b, 2), f32), vp_init=(state.vp_init, (b,), flag),
+        vp_moved=(state.vp_moved, (b,), flag),
+        ring_xy=(state.ring_xy, (b, cfg.vp_ref_num, 2), f32),
+        ring_total=(state.ring_total, (b,), i64),
+        alias_pos=(state.alias_pos, (b,), i64),
+        vp_ult=(state.vp_ult, (b,), i64),
+        hist_xy=(state.hist_xy, (b, cfg.vp_ref, 2), f32),
+        hist_total=(state.hist_total, (b,), i64))
+    for name, (x, shape, dtype) in want.items():
+        if tuple(x.shape) != shape:
+            raise ValueError(f"pair scan: {name} is {tuple(x.shape)}, "
+                             f"expected {shape}")
+        if x.dtype != dtype:
+            raise TypeError(f"pair scan: {name} is {x.dtype}, expected "
+                            f"{dtype}")
+        if x.device != cps_c.device:
+            raise ValueError(f"pair scan: {name} on {x.device}, the cross "
+                             f"points on {cps_c.device}")
+    if not 0 <= n_steps <= p:
+        raise ValueError(f"pair scan: n_steps {n_steps} outside 0..{p}")
+
+
 def process_frame_pairs(state: VPState, cps_c: torch.Tensor,
                         cand_c: torch.Tensor, n_steps: int,
                         cfg: PipelineConfig, frame_size: Tuple[int, int]
                         ) -> Tuple[VPState, FrameGeomOut]:
     """The cross-point / VP-update scan of one frame for B streams.
 
-    ``cps_c``/``cand_c`` come from ``frame_candidates``; ``n_steps`` is
-    the largest candidate count among the streams (the caller reads it
-    from the device).  Rows past a stream's candidates stay zero and
-    unmasked, as the JAX while loop leaves them."""
+    ``cps_c``/``cand_c`` come from ``frame_candidates``; a stream's steps
+    are its first ``n_steps`` pairs (the caller reads the largest
+    candidate count from the device, or scans all P pairs).  Rows past a
+    stream's candidates stay zero and unmasked, as the JAX while loop
+    leaves them.  The input state is not written: the new one is
+    returned."""
+    if cps_c.device.type == "cpu":
+        return process_frame_pairs_reference(state, cps_c, cand_c, n_steps,
+                                             cfg, frame_size)
+    if cps_c.device.type != "cuda":
+        raise ValueError(f"process_frame_pairs: unsupported device "
+                         f"{cps_c.device}")
+    return _process_frame_pairs_cuda(state, cps_c, cand_c, n_steps, cfg,
+                                     frame_size)
+
+
+def process_frame_pairs_reference(state: VPState, cps_c: torch.Tensor,
+                                  cand_c: torch.Tensor, n_steps: int,
+                                  cfg: PipelineConfig,
+                                  frame_size: Tuple[int, int]
+                                  ) -> Tuple[VPState, FrameGeomOut]:
+    """Plain PyTorch form of ``process_frame_pairs``: the B streams step
+    together, ``n_steps`` steps."""
+    global plain_calls
+    _check(state, cps_c, cand_c, n_steps, cfg)
+    plain_calls += 1
     width, height = frame_size
     b, p = cand_c.shape
     r_cap = cfg.vp_ref_num
@@ -203,6 +273,64 @@ def process_frame_pairs(state: VPState, cps_c: torch.Tensor,
         vp_hidden=torch.zeros((b,), dtype=torch.bool, device=dev),
     )
     return st, out
+
+
+class _ScanArgs(ctypes.Structure):
+    """``LkVpScanArgs`` of ``csrc/vp_scan.cu``, field for field."""
+    _fields_ = (
+        [(n, ctypes.c_void_p) for n in (
+            *VPState._fields, *(f"o_{k}" for k in VPState._fields),
+            "cps", "cand",
+            *FrameGeomOut._fields)]
+        + [(n, ctypes.c_int) for n in ("B", "P", "n_steps", "R", "H",
+                                       "aliasing")]
+        + [(n, ctypes.c_float) for n in ("bound_x", "bound_y", "rate",
+                                         "clip", "r_cap")])
+
+
+def _process_frame_pairs_cuda(state: VPState, cps_c: torch.Tensor,
+                              cand_c: torch.Tensor, n_steps: int,
+                              cfg: PipelineConfig,
+                              frame_size: Tuple[int, int]
+                              ) -> Tuple[VPState, FrameGeomOut]:
+    global kernel_launches
+    from lk_tpu_torch import _build
+
+    _check(state, cps_c, cand_c, n_steps, cfg)
+    b, p = cand_c.shape
+    width, height = frame_size
+    state = VPState(*(x.contiguous() for x in state))
+    cps_c, cand_c = cps_c.contiguous(), cand_c.contiguous()
+    new = VPState(*(torch.empty_like(x) for x in state))
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=cps_c.device)
+
+    f32, flag = torch.float32, torch.bool
+    out = FrameGeomOut(
+        update_rows=empty((b, p, 2), f32), update_mask=empty((b, p), flag),
+        cp_xy=empty((b, p, 2), f32), cp_mask=empty((b, p), flag),
+        show_row=empty((b, 2), f32), show_mask=empty((b,), flag),
+        vp_hidden=empty((b,), flag))
+    args = _ScanArgs(
+        *(x.data_ptr() for x in (*state, *new, cps_c, cand_c, *out)),
+        b, p, n_steps, cfg.vp_ref_num, cfg.vp_ref, int(cfg.vp_init_aliasing),
+        width * cfg.cp_thold, height * cfg.cp_thold, cfg.vp_update_rate,
+        cfg.max_cp_std, float(cfg.vp_ref_num))
+    lib = _build.library()
+    # the launcher refuses a ring of more than 64 slots, or more pairs than
+    # a block's shared memory stages; launch() raises on that
+    _build.launch(lib.lk_vp_scan_launch, cps_c, "vp_scan",
+                  ctypes.byref(args))
+    kernel_launches += 1
+    return new, out
+
+
+def bind(lib: ctypes.CDLL) -> None:
+    """Declare the C interface of ``csrc/vp_scan.cu``."""
+    lib.lk_vp_scan_launch.argtypes = [ctypes.POINTER(_ScanArgs),
+                                      ctypes.c_void_p]
+    lib.lk_vp_scan_launch.restype = ctypes.c_int
 
 
 def vp_show_step(state: VPState, out: FrameGeomOut, cfg: PipelineConfig

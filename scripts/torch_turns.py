@@ -82,6 +82,7 @@ def main() -> int:
 
     from lk_tpu_torch.entry import entry
     from lk_tpu_torch.flow import dense
+    from lk_tpu_torch.flow import lk_kernels as lk
     from lk_tpu_torch.flow import warp_kernels as wk
     from lk_tpu_torch.ops import blur, finish
 
@@ -161,7 +162,10 @@ def main() -> int:
     fn, _ = entry()
     f0, f1 = frames[0], frames[1]
     flow_a = fn(f0, f1)
-    cs.reset_counters()
+    # the counters dense_counts() reads; chip_smoke's reset_counters() also
+    # resets modules that older trees lack
+    for module in (lk, wk, blur):
+        module.reset_counters()
     res_b = dense.dense_pyramidal_lk(f0, f1, cfg, None, bcfg)
     torch.cuda.synchronize()
     counts, _ = cs.dense_counts()

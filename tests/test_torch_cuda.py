@@ -14,6 +14,7 @@ import torch
 from lk_tpu_torch.flow import lk_kernels as lk
 from lk_tpu_torch.flow import sparse
 from lk_tpu_torch.flow import warp_kernels as wk
+from lk_tpu_torch.geometry import vanishing
 from lk_tpu_torch.ops import blur, finish
 
 THR = 1e-4
@@ -208,10 +209,12 @@ def test_window_gather_matches_plain(cuda_device, win, sw):
 
 @pytest.mark.cuda
 def test_serving_kernels_match_plain_path(cuda_device):
-    """A small batched serving run through both kernels equals the same run
-    through their plain versions; kernel A launches once per feed, kernel
-    B three times (once per level) per processed frame, the pyramid once
-    per fold."""
+    """A small batched serving run through the kernels equals the same run
+    through their plain versions, op by op; the finish launches once per
+    feed, and per frame stepped op by op or captured (a replay launches
+    none from the host) the gather three times (once per level), the
+    pyramid once (plus once for the chunk's seed) and the pair scan
+    once."""
     import dataclasses
 
     from lk_tpu_torch.models import PRESETS
@@ -233,21 +236,18 @@ def test_serving_kernels_match_plain_path(cuda_device):
         ms.drain()
         return ms
 
-    finish.reset_counters()
-    sparse.reset_counters()
-    blur.reset_counters()
+    _reset_all()
     kern = run()
+    counts = runner.chunk_graph_counts
+    stepped = counts["eager"] * 8 + counts["captures"]
     assert (finish.kernel_launches, finish.plain_calls) == (2, 0)
-    assert (sparse.kernel_launches, sparse.plain_calls) == (3 * 8, 0)
+    assert (sparse.kernel_launches, sparse.plain_calls) == (3 * stepped, 0)
     # the tracker's pyramid: once for the chunk's seed, once per frame
-    assert (blur.kernel_launches, blur.plain_calls) == (1 + 8, 0)
-    old = finish.fused_finish, sparse.gather_windows
-    finish.fused_finish = finish.fused_finish_reference
-    sparse.gather_windows = sparse.gather_windows_reference
-    try:
+    assert (blur.kernel_launches, blur.plain_calls) == (1 + stepped, 0)
+    assert (vanishing.kernel_launches, vanishing.plain_calls) == (stepped, 0)
+    with _PlainTracker():
         plain = run()
-    finally:
-        finish.fused_finish, sparse.gather_windows = old
+    assert finish.plain_calls > 0 and vanishing.plain_calls > 0
     for p, q in zip(kern.pipes, plain.pipes):
         assert p.csv_rows == q.csv_rows
         assert p.cross_points == q.cross_points
@@ -566,36 +566,168 @@ def test_precomputed_level_matches_plain(cuda_device, case, shape,
     assert torch.equal(flow, init)
 
 
+# --- the VP pair scan ---------------------------------------------------------
+
+def _scan_leaves(result) -> list:
+    state, out = result
+    return [*state, *out]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ring", [10, 15])
+def test_ring_sums_take_the_scan_kernels_order(cuda_device, ring):
+    """PyTorch's CUDA sum over the ring axis of a (B, R, 2) tensor, as the
+    plain scan takes it, adds slot k into accumulator k % 4 in slot order,
+    then ((a0 + a1) + a2) + a3: the order csrc/vp_scan.cu reproduces."""
+    rng = np.random.default_rng(ring)
+    x = torch.from_numpy((rng.normal(0, 1, (64, ring, 2))
+                          * 10.0 ** rng.integers(-3, 4, (64, ring, 2)))
+                         .astype(np.float32))
+    acc = [torch.zeros(64, 2) for _ in range(4)]
+    for k in range(ring):
+        acc[k % 4] = acc[k % 4] + x[:, k]
+    want = ((acc[0] + acc[1]) + acc[2]) + acc[3]
+    got = x.to(cuda_device).sum(dim=1).cpu()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    # and not the slot order alone
+    seq = torch.zeros(64, 2)
+    for k in range(ring):
+        seq = seq + x[:, k]
+    assert not torch.equal(seq, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,p,ring", [(1, 6, 15), (3, 6, 15), (64, 6, 15),
+                                      (1, 190, 15), (3, 190, 15),
+                                      (64, 190, 15), (3, 190, 10),
+                                      (64, 190, 10), (3, 190, 20)])
+def test_vp_scan_kernel_matches_plain(cuda_device, b, p, ring):
+    """The scan kernel equals process_frame_pairs_reference on the card
+    bit for bit in every leaf of the new state and of the outputs: every
+    state kind x candidate fill x trip count of tests/vp_scan_cases.py; one
+    launch a call, no plain call, the inputs unchanged.  A ring of 20
+    slots takes the kernel's 64-slot instance."""
+    from vp_scan_cases import CANDS, STATES, STEPS, same_bits, scan_case
+
+    updates = inits = 0
+    for i, (sk, ck, nk) in enumerate(
+            (s, c, n) for s in STATES for c in CANDS for n in STEPS):
+        cfg, state, cps, cand, n_steps, size = scan_case(
+            sk, ck, nk, b, p, seed=1000 * b + 10 * p + i, ring=ring,
+            device=cuda_device)
+        before = [x.clone() for x in (*state, cps, cand)]
+        vanishing.reset_counters()
+        got = vanishing.process_frame_pairs(state, cps, cand, n_steps, cfg,
+                                            size)
+        assert (vanishing.kernel_launches, vanishing.plain_calls) == (1, 0)
+        want = vanishing.process_frame_pairs_reference(state, cps, cand,
+                                                       n_steps, cfg, size)
+        torch.cuda.synchronize()
+        names = vanishing.VPState._fields + vanishing.FrameGeomOut._fields
+        for name, g, w in zip(names, _scan_leaves(got), _scan_leaves(want)):
+            assert g.device.type == "cuda"
+            assert same_bits(g, w), (sk, ck, nk, name)
+        assert all(same_bits(x, y)
+                   for x, y in zip(before, (*state, cps, cand)))
+        updates += int(want[1].update_mask.sum())
+        inits += int((want[0].vp_init & ~state.vp_init).sum())
+    assert updates > 0 and (inits > 0 or p < ring)
+
+
+@pytest.mark.cuda
+def test_vp_scan_kernel_in_a_cuda_graph(cuda_device):
+    """The scan captured in a CUDA graph: a replay gives the eager call's
+    bits, and a replay over new inputs copied into the captured ones gives
+    theirs (each stream's trip count is read on the card)."""
+    from vp_scan_cases import same_bits, scan_case
+
+    cases = [scan_case(sk, "mixed", "all", 64, 190, seed=s,
+                       device=cuda_device)
+             for s, sk in enumerate(["aliased", "mid_fill"])]
+    cfg, state, cps, cand, n_steps, size = cases[0]
+    static = [x.clone() for x in (*state, cps, cand)]
+
+    def call():
+        st = vanishing.VPState(*static[:len(state)])
+        return vanishing.process_frame_pairs(st, static[-2], static[-1],
+                                             n_steps, cfg, size)
+
+    call()                                  # loads the library
+    torch.cuda.synchronize()
+    vanishing.reset_counters()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = call()
+    assert vanishing.kernel_launches == 1
+    for c_cfg, c_state, c_cps, c_cand, _, _ in cases:
+        for dst, src in zip(static, (*c_state, c_cps, c_cand)):
+            dst.copy_(src)
+        graph.replay()
+        want = vanishing.process_frame_pairs_reference(
+            c_state, c_cps, c_cand, n_steps, c_cfg, size)
+        eager = call()
+        torch.cuda.synchronize()
+        for g, e, w in zip(_scan_leaves(outs), _scan_leaves(eager),
+                           _scan_leaves(want)):
+            assert same_bits(g, w) and same_bits(e, w)
+    assert vanishing.kernel_launches == 1 + len(cases)
+
+
+@pytest.mark.cuda
+def test_vp_scan_kernel_rejects_bad_input(cuda_device):
+    from vp_scan_cases import scan_case
+
+    cfg, state, cps, cand, n_steps, size = scan_case(
+        "aliased", "mixed", "max", 3, 40, seed=5, device=cuda_device)
+    with pytest.raises(TypeError):
+        vanishing.process_frame_pairs(state, cps.double(), cand, n_steps,
+                                      cfg, size)
+    with pytest.raises(ValueError):
+        vanishing.process_frame_pairs(state, cps, cand, 41, cfg, size)
+    with pytest.raises(ValueError):         # the state on the CPU
+        cpu = vanishing.VPState(*(x.cpu() for x in state))
+        vanishing.process_frame_pairs(cpu, cps, cand, n_steps, cfg, size)
+    import dataclasses
+    big = dataclasses.replace(cfg, vp_ref_num=65)
+    wide = state._replace(ring_xy=torch.zeros(3, 65, 2, device=cuda_device))
+    # the launcher's limits (64 ring slots, the pairs' shared memory)
+    with pytest.raises(RuntimeError, match="vp_scan kernel launch failed"):
+        vanishing.process_frame_pairs(wide, cps, cand, n_steps, big, size)
+
+
 # --- the apps on the card ----------------------------------------------------
 
 def _reset_all():
     from lk_tpu_torch.pipeline import runner
 
-    for m in (blur, finish, sparse, lk, wk, runner):
+    for m in (blur, finish, sparse, lk, wk, runner, vanishing):
         m.reset_counters()
 
 
 class _PlainTracker:
-    """Context: the per-point and batched trackers' pyramid, the finish
-    and the gather through their plain versions (module attributes looked
-    up at call time), the batched chunks op by op (a chunk graph would
-    replay the kernels it captured)."""
+    """Context: the per-point and batched trackers' pyramid, the finish,
+    the gather and the VP pair scan through their plain versions (module
+    attributes looked up at call time), the batched chunks op by op (a
+    chunk graph would replay the kernels it captured)."""
 
     def __enter__(self):
-        from lk_tpu_torch.pipeline import runner
+        from lk_tpu_torch.pipeline import runner, step
 
         self.old = (sparse.build_pyramid, finish.fused_finish,
-                    sparse.gather_windows, runner.CHUNK_GRAPHS)
+                    sparse.gather_windows, step.process_frame_pairs,
+                    runner.CHUNK_GRAPHS)
         sparse.build_pyramid = blur.build_pyramid_reference
         finish.fused_finish = finish.fused_finish_reference
         sparse.gather_windows = sparse.gather_windows_reference
+        step.process_frame_pairs = vanishing.process_frame_pairs_reference
         runner.CHUNK_GRAPHS = 0
 
     def __exit__(self, *exc):
-        from lk_tpu_torch.pipeline import runner
+        from lk_tpu_torch.pipeline import runner, step
 
         (sparse.build_pyramid, finish.fused_finish,
-         sparse.gather_windows, runner.CHUNK_GRAPHS) = self.old
+         sparse.gather_windows, step.process_frame_pairs,
+         runner.CHUNK_GRAPHS) = self.old
 
 
 @pytest.mark.cuda
@@ -618,8 +750,9 @@ def test_stream_on_card_equals_cpu(cuda_device):
 @pytest.mark.parametrize("app", ["final", "vp_detect", "classify"])
 def test_vp_app_on_card(cuda_device, app, tmp_path):
     """A VP app's main on the card (--synthetic 1280x720, 17 frames): one
-    pyramid launch per tracked frame, no plain call, no other kernel, and
-    the rows of the same run with the plain pyramid."""
+    pyramid launch and one pair-scan launch per tracked frame, no plain
+    call, no other kernel, and the rows of the same run with the plain
+    pyramid and scan."""
     import importlib
 
     module = importlib.import_module(f"lk_tpu_torch.apps.{app}")
@@ -628,6 +761,7 @@ def test_vp_app_on_card(cuda_device, app, tmp_path):
     _reset_all()
     kern = module.main(argv)
     assert (blur.kernel_launches, blur.plain_calls) == (16, 0)
+    assert (vanishing.kernel_launches, vanishing.plain_calls) == (16, 0)
     assert finish.kernel_launches == sparse.kernel_launches == 0
     assert (tmp_path / "vps_synthetic.csv").is_file()
     with _PlainTracker():
@@ -682,8 +816,9 @@ def test_serve_on_card(cuda_device):
     pyramid once per chunk (the chunk's first fold); a chunk run op by op
     launches the gather 3 times and the pyramid once per frame, and so
     does the one captured frame (a replay launches neither from the
-    host); every chunk but the key's first replays its frame graph; no
-    plain call; rows within 1e-4 px of the plain versions."""
+    host), and the pair scan once per such frame; every chunk but the
+    key's first replays its frame graph; no plain call; rows within 1e-4
+    px of the plain versions."""
     from lk_tpu_torch.apps import serve
     from lk_tpu_torch.pipeline import runner
 
@@ -699,7 +834,9 @@ def test_serve_on_card(cuda_device):
     assert finish.kernel_launches == 2 * (chunks + 1)
     assert sparse.kernel_launches == 3 * stepped
     assert blur.kernel_launches == 2 * chunks + stepped
-    assert finish.plain_calls + sparse.plain_calls + blur.plain_calls == 0
+    assert vanishing.kernel_launches == stepped
+    assert (finish.plain_calls + sparse.plain_calls + blur.plain_calls
+            + vanishing.plain_calls) == 0
     with _PlainTracker():
         ref = serve.run_server(args)
     for a, b in zip(run.server.pipes, ref.server.pipes):
@@ -739,6 +876,7 @@ def test_fleet_chunk_graph_on_card(cuda_device):
 
     spec = tiny_fleet_spec()
     runner.reset_counters()
+    vanishing.reset_counters()
     cell = harness.make_cell(spec, 2 ** 31 + 9, "cuda")
     cell.setup()
     cell._reset()
@@ -749,7 +887,10 @@ def test_fleet_chunk_graph_on_card(cuda_device):
     cell.release()
     assert runner.chunk_graph_counts["replays"] - before["replays"] == 4
     assert runner.chunk_graph_counts["eager"] == before["eager"]
+    # the warm-up's op-by-op chunk and captures ran the scan kernel
+    assert vanishing.kernel_launches > 0 and vanishing.plain_calls == 0
     out = cell.compare()
+    assert vanishing.plain_calls == 0
     assert out["replay_mismatch"] == 0 and out["drain_mismatch"] == 0
     limits = spec.traffic["check"]["limits"]
     assert all(v <= limits[k] for k, v in out.items()), out
