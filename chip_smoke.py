@@ -26,9 +26,9 @@ run_vp_app runs it.
      shape forced (same bits checked); per variant beside the time of
      the kernel's first design;
   3. dense main path: dense_pyramidal_lk_video on two synthetic 34-frame
-     1080p scenes (8 chunks of 4 pairs plus a 1-pair tail), with the
+     1080p scenes (8 chunks of 4 pairs and a 1-pair chunk), with the
      launch counters reset just before and read just after (one pyramid
-     launch per build: 10); flow, min_eig and valid equal to the same run
+     launch per chunk: 9); flow, min_eig and valid equal to the same run
      with the plain pyramid; mean EPE vs exact ground truth on bench.py's
      grid must be < 0.1 px;
   4. dense timing with CUDA events: pairs/s (output flow fields per second)
@@ -91,8 +91,8 @@ run_vp_app runs it.
      gather on the three folded levels of the 64-stream batch with the
      tracker's frame-major point set and a shuffled one; the VP pair
      scan on the 64 streams' inputs of the first chunk's 16 steps (P =
-     190 pairs), bit-equal to process_frame_pairs_reference at the step's
-     n_steps and at n_steps = P; device and CUDA-event ms per launch;
+     190 pairs), one call a step bit-equal to
+     process_frame_pairs_reference; device and CUDA-event ms per launch;
  13. serving timing: aggregate stream-frames/s with CUDA events around
      whole feed_staged + drain passes after the warm-up pass of phase 11;
  14. only with --profile: the serving pass's device and host time by
@@ -170,12 +170,10 @@ import time
 import numpy as np
 
 H, W = 1080, 1920
-FRAMES = 34               # 33 pairs = 8 chunks of 4 + a 1-pair tail
+FRAMES = 34               # 33 pairs = 8 chunks of 4 + a 1-pair chunk
 K = 4                     # pairs per chunk (DenseLKConfig.video_chunk)
-# pyramid builds per video: one per chunk of K+1 frames, one per frame of
-# the per-frame tail (its pairs + 1 frames)
-VIDEO_PYRAMIDS = (FRAMES - 1) // K + ((FRAMES - 1) % K + 1
-                                     if (FRAMES - 1) % K else 0)
+# pyramid builds per video: one per chunk, the leftover pairs' included
+VIDEO_PYRAMIDS = -(-(FRAMES - 1) // K)
 EPE_LIMIT = 0.1           # px, bench.py's gate (ground-truth term)
 # Kernel vs plain version: both f32 with the same operation order (the
 # kernel is built without FMA contraction), so they should agree to the
@@ -1587,27 +1585,32 @@ def n_chunks(f=SF) -> int:
 
 def plain_versions():
     """Context: the serving path through the plain versions (module
-    attributes the path looks up at call time), for comparison runs."""
+    attributes the path looks up at call time), for comparison runs, every
+    chunk op by op (the plain pair scan reads its trip count from the
+    device, so no frame graph can capture it)."""
     import contextlib
 
     from lk_tpu_torch.flow import sparse
     from lk_tpu_torch.geometry import vanishing
     from lk_tpu_torch.ops import blur, finish
-    from lk_tpu_torch.pipeline import step
+    from lk_tpu_torch.pipeline import runner, step
 
     @contextlib.contextmanager
     def ctx():
         old = (finish.fused_finish, sparse.gather_windows,
-               sparse.build_pyramid, step.process_frame_pairs)
+               sparse.build_pyramid, step.process_frame_pairs,
+               runner.CHUNK_GRAPHS)
         finish.fused_finish = finish.fused_finish_reference
         sparse.gather_windows = sparse.gather_windows_reference
         sparse.build_pyramid = blur.build_pyramid_reference
         step.process_frame_pairs = vanishing.process_frame_pairs_reference
+        runner.CHUNK_GRAPHS = 0
         try:
             yield
         finally:
             (finish.fused_finish, sparse.gather_windows,
-             sparse.build_pyramid, step.process_frame_pairs) = old
+             sparse.build_pyramid, step.process_frame_pairs,
+             runner.CHUNK_GRAPHS) = old
 
     return ctx()
 
@@ -1837,8 +1840,7 @@ def serving_kernels(staging, card, reps=20):
     del calls
 
     # --- the VP pair scan: the first chunk's steps, kernel == plain bit for
-    # bit at the step's n_steps (the largest candidate count) and at P (the
-    # frame graph's static step) ---
+    # bit, one call a step ---
     def kept(state, cps, cand, *rest):
         return (type(state)(*(x.clone() for x in state)), cps.clone(),
                 cand.clone(), *rest)
@@ -1848,39 +1850,37 @@ def serving_kernels(staging, card, reps=20):
     check(len(calls) == S_CHUNK, f"{len(calls)} pair-scan calls recorded, "
           f"expected {S_CHUNK}")
     counts = []
-    for state, cps, cand, n_steps, cfg_s, size in calls:
+    for state, cps, cand, cfg_s, size in calls:
         p = cand.shape[1]
         kept = [x.clone() for x in (*state, cps, cand)]
         want = vanishing.process_frame_pairs_reference(state, cps, cand,
-                                                       n_steps, cfg_s, size)
-        for n in (n_steps, p):
-            got = vanishing.process_frame_pairs(state, cps, cand, n, cfg_s,
-                                                size)
-            torch.cuda.synchronize()
-            same = all(same_bits(a, b) for a, b in
-                       zip((*got[0], *got[1]), (*want[0], *want[1])))
-            check(same, f"pair scan B={SB} P={p} n_steps {n}: the kernel's "
-                  f"bits differ from the plain version's")
+                                                       cfg_s, size)
+        got = vanishing.process_frame_pairs(state, cps, cand, cfg_s, size)
+        torch.cuda.synchronize()
+        same = all(same_bits(a, b) for a, b in
+                   zip((*got[0], *got[1]), (*want[0], *want[1])))
+        check(same, f"pair scan B={SB} P={p}: the kernel's bits differ from "
+              f"the plain version's")
         check(all(same_bits(a, b)
                   for a, b in zip(kept, (*state, cps, cand))),
               "the pair scan wrote its inputs")
-        counts.append((n_steps, int(cand.sum()),
+        counts.append((int(cand.sum(dim=1).max()), int(cand.sum()),
                        int(want[1].update_mask.sum())))
-    state, cps, cand, n_steps, cfg_s, size = calls[-1]
+    state, cps, cand, cfg_s, size = calls[-1]
     p = cand.shape[1]
-    new, out = vanishing.process_frame_pairs(state, cps, cand, p, cfg_s, size)
+    new, out = vanishing.process_frame_pairs(state, cps, cand, cfg_s, size)
 
     def scan():
-        vanishing.process_frame_pairs(state, cps, cand, p, cfg_s, size)
+        vanishing.process_frame_pairs(state, cps, cand, cfg_s, size)
 
     ms_v = cuda_ms(scan, reps)
     dms_v = device_us(scan, {"vp_scan_kernel": 1}) / 1e3
     pms_v = cuda_ms(lambda: vanishing.process_frame_pairs_reference(
-        state, cps, cand, n_steps, cfg_s, size), 3)
+        state, cps, cand, cfg_s, size), 3)
     b_v, by_v = scan_bound(state, new, cps, cand, out)
     print(f"[kernel] vp_scan B={SB} P={p}, steps 1..{S_CHUNK} of the first "
-          f"chunk (n_steps, candidates, updates): {counts}; kernel == plain "
-          f"bit for bit at n_steps and at P, inputs unchanged; the last "
+          f"chunk (largest candidate count, candidates, updates): "
+          f"{counts}; kernel == plain bit for bit, inputs unchanged; the last "
           f"step: kernel device {dms_v * 1e3:.1f} us (events "
           f"{ms_v * 1e3:.1f} us), plain op by op {pms_v:.3f} ms, bound "
           f"{b_v * 1e3:.3f} us ({by_v})  [{card}]")

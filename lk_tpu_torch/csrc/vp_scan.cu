@@ -71,7 +71,7 @@ struct LkVpScanArgs {
   float* show_row;
   uint8_t* show_mask;
   uint8_t* vp_hidden;
-  int B, P, n_steps;
+  int B, P;
   int R;          // CP ring slots (vp_ref_num)
   int H;          // history ring slots (vp_ref)
   int aliasing;   // vp_init_aliasing
@@ -183,10 +183,10 @@ __global__ void __launch_bounds__(32) vp_scan_kernel(const LkVpScanArgs a) {
   // the scan updates, after the warp's barrier)
   const float* hist_in = a.hist_xy + (size_t)b * H * 2;
   for (int j = lane; j < 2 * H; j += 32) hist[j] = hist_in[j];
-  // stage the steps' candidates; zero the output slots no step writes
+  // stage the stream's candidates; zero the output slots no step writes
   int last = -1;
   for (int i = lane; i < P; i += 32) {
-    const bool ok = i < a.n_steps && a.cand[bp + i] != 0;
+    const bool ok = a.cand[bp + i] != 0;
     s_ok[i] = ok;
     if (ok) {
       s_cx[i] = a.cps[2 * (bp + i)];
@@ -299,8 +299,7 @@ extern "C" {
 // (0 = ok).  R (ring slots) up to 64; P up to what a block's shared memory
 // stages (9 bytes a pair).
 int lk_vp_scan_launch(const LkVpScanArgs* a, void* stream) {
-  if (a->B < 0 || a->P < 0 || a->n_steps < 0 || a->n_steps > a->P ||
-      a->R < 1 || a->R > 64 || a->H < 1)
+  if (a->B < 0 || a->P < 0 || a->R < 1 || a->R > 64 || a->H < 1)
     return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)a->P * (2 * sizeof(float) + 1);
   if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;

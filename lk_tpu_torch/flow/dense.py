@@ -589,6 +589,37 @@ def levels_from_numpy(levels, plan: tuple, device="cuda") -> tuple:
     return tuple(out)
 
 
+def _plan_levels(prev: tuple, nxt: tuple, cfg: LKConfig, plan: tuple,
+                 true_hw: tuple[int, int], seed: Optional[torch.Tensor] = None):
+    """The video plan's levels, top to 0, over K pairs: prev/nxt hold per
+    level (K, h, w) stacks of the pairs' first and second frames, and each
+    level is one fused-level call over the K pairs (the same per-pixel
+    arithmetic whatever K), the top one from ``seed`` (K, 2, h_top, w_top;
+    None: zeros).  Returns the result, with level 0's (min_eig, valid),
+    and the top level's converged flow (K, h_top, w_top, 2)."""
+    h_true, w_true = true_hw
+    top = cfg.max_level
+    flow = seed
+    if seed is None:
+        flow = torch.zeros((prev[top].shape[0], 2, plan[top].h, plan[top].w),
+                           dtype=torch.float32, device=prev[top].device)
+    for level in range(top, -1, -1):
+        p = plan[level]
+        flow, min_eig, valid = fused_lk_level(
+            prev[level], nxt[level], flow, tile_h=p.th, tile_w=p.tw,
+            max_disp=p.disp, local=p.local, n_iters=p.iters,
+            coarse_in=level < top, write_stats=level == 0,
+            min_eig_threshold=cfg.min_eig_threshold, win_k=cfg.win_size[1])
+        if level == top:
+            top_flow = flow.movedim(1, -1)
+    result = DenseFlowResult(
+        flow=flow[:, :, :h_true, :w_true].movedim(1, -1),
+        min_eig=min_eig[:, :h_true, :w_true],
+        valid=valid[:, :h_true, :w_true],
+    )
+    return result, top_flow
+
+
 def dense_flow_from_levels_prepadded(
     prev_levels: tuple,
     next_levels: tuple,
@@ -607,39 +638,17 @@ def dense_flow_from_levels_prepadded(
     only level 0 writes (min_eig, valid).  init_flow seeds the top level
     ((h_top, w_top, 2)); return_top_flow also returns its converged flow."""
     cfg = _effective_cfg(cfg, dense_cfg, true_hw)
-    h_true, w_true = true_hw
-    top = cfg.max_level
-    p = plan[top]
-    dev = prev_levels[top].device
-    if init_flow is None:
-        seed = torch.zeros((1, 2, p.h, p.w), dtype=torch.float32, device=dev)
-    else:
+    p = plan[cfg.max_level]
+    seed = None
+    if init_flow is not None:
         if tuple(init_flow.shape) != (p.h, p.w, 2):
             raise ValueError(f"init_flow shape {tuple(init_flow.shape)}")
         seed = init_flow.to(torch.float32).movedim(-1, 0)[None].contiguous()
-    flow, min_eig, valid = fused_lk_level(
-        prev_levels[top][None], next_levels[top][None], seed,
-        tile_h=p.h, tile_w=p.w, max_disp=p.disp, local=p.local,
-        n_iters=p.iters, min_eig_threshold=cfg.min_eig_threshold,
-        win_k=cfg.win_size[1])
-    top_flow = flow[0].movedim(0, -1) if return_top_flow else None
-    for level in range(top - 1, -1, -1):
-        p = plan[level]
-        flow, me, va = fused_lk_level(
-            prev_levels[level][None], next_levels[level][None], flow,
-            tile_h=p.th, tile_w=p.tw, max_disp=p.disp, local=p.local,
-            coarse_in=True, write_stats=(level == 0),
-            min_eig_threshold=cfg.min_eig_threshold, win_k=cfg.win_size[1])
-        if level == 0:
-            min_eig, valid = me, va
-    result = DenseFlowResult(
-        flow=flow[0, :, :h_true, :w_true].movedim(0, -1),
-        min_eig=min_eig[0, :h_true, :w_true],
-        valid=valid[0, :h_true, :w_true],
-    )
-    if return_top_flow:
-        return result, top_flow
-    return result
+    result, top_flow = _plan_levels(
+        tuple(x[None] for x in prev_levels),
+        tuple(x[None] for x in next_levels), cfg, plan, true_hw, seed)
+    result = DenseFlowResult(*(x[0] for x in result))
+    return (result, top_flow[0]) if return_top_flow else result
 
 
 def dense_flow_chunk_prepadded(
@@ -657,7 +666,6 @@ def dense_flow_chunk_prepadded(
     the frame axis.  The call is the span ``dense.chunk``."""
     with span("dense.chunk"):
         cfg = _effective_cfg(cfg, dense_cfg, true_hw)
-        h_true, w_true = true_hw
         top = cfg.max_level
         if len(plan) != top + 1:
             raise ValueError(f"{len(plan)}-level plan for max_level {top}")
@@ -666,30 +674,9 @@ def dense_flow_chunk_prepadded(
         for st, p in zip(stacks, plan):
             if tuple(st.shape[1:]) != (p.h, p.w):
                 raise ValueError(f"level {tuple(st.shape)} does not match {p}")
-        k = frames_chunk.shape[0] - 1
-        p = plan[top]
-        st = stacks[top]
-        seed = torch.zeros((k, 2, p.h, p.w), dtype=torch.float32,
-                           device=st.device)
-        flow, min_eig, valid = fused_lk_level(
-            st[:-1], st[1:], seed, tile_h=p.h, tile_w=p.w, max_disp=p.disp,
-            local=p.local, n_iters=p.iters,
-            min_eig_threshold=cfg.min_eig_threshold, win_k=cfg.win_size[1])
-        for level in range(top - 1, -1, -1):
-            p = plan[level]
-            st = stacks[level]
-            flow, me, va = fused_lk_level(
-                st[:-1], st[1:], flow, tile_h=p.th, tile_w=p.tw,
-                max_disp=p.disp, local=p.local, coarse_in=True,
-                write_stats=(level == 0),
-                min_eig_threshold=cfg.min_eig_threshold, win_k=cfg.win_size[1])
-            if level == 0:
-                min_eig, valid = me, va
-        return DenseFlowResult(
-            flow=flow[:, :, :h_true, :w_true].movedim(1, -1),
-            min_eig=min_eig[:, :h_true, :w_true],
-            valid=valid[:, :h_true, :w_true],
-        )
+        return _plan_levels(tuple(st[:-1] for st in stacks),
+                            tuple(st[1:] for st in stacks), cfg, plan,
+                            true_hw)[0]
 
 
 def _stack(results: list) -> DenseFlowResult:
@@ -709,85 +696,72 @@ def dense_pyramidal_lk_video(
 
     Each frame's pyramid is built once and carried to the next pair.  With
     ``video_chunk`` > 1 (and no warm start) pairs run in chunks of that
-    many cold pairs, the leftover pairs through the per-frame chain.  With
+    many cold pairs, the leftover pairs as one shorter chunk.  With
     ``video_warm_start`` the top level of each pair after the first is
     seeded with the previous pair's converged top flow and runs
     ``warm_top_iters``.  The call is the span ``dense.video``; in it, the
-    chunks' ``dense.chunk``, the leftover pairs' ``dense.tail`` and the
-    output copy's ``dense.cat``."""
+    chunks' ``dense.chunk`` and the output copy's ``dense.cat``."""
     with span("dense.video"):
-        return _video(frames, cfg, dense_cfg)
+        if frames.ndim != 3 or frames.shape[0] < 2:
+            raise ValueError(f"frames must be (T >= 2, H, W), got "
+                             f"{tuple(frames.shape)}")
+        h_true, w_true = frames.shape[-2:]
+        hw = (h_true, w_true)
+        cfg = _effective_cfg(cfg, dense_cfg, hw)
+        t_total = frames.shape[0]
+        plan = _video_level_plan(
+            cfg, dense_cfg,
+            pyramid_base_geometry(h_true, w_true, cfg, dense_cfg), true_hw=hw)
+        chunk = dense_cfg.video_chunk
+        if plan is not None and chunk > 1 and not dense_cfg.video_warm_start:
+            parts = [dense_flow_chunk_prepadded(
+                frames[c:c + chunk + 1], cfg, dense_cfg, hw, plan)
+                for c in range(0, t_total - 1, chunk)]
+            with span("dense.cat"):
+                return _cat(parts)
 
-
-def _video(frames: torch.Tensor, cfg: LKConfig, dense_cfg: DenseLKConfig
-           ) -> DenseFlowResult:
-    """``dense_pyramidal_lk_video`` outside its span: the chunked branch's
-    leftover pairs recurse here, so ``dense.video`` never nests in itself."""
-    if frames.ndim != 3 or frames.shape[0] < 2:
-        raise ValueError(f"frames must be (T >= 2, H, W), got "
-                         f"{tuple(frames.shape)}")
-    h_true, w_true = frames.shape[-2:]
-    hw = (h_true, w_true)
-    cfg = _effective_cfg(cfg, dense_cfg, hw)
-    t_total = frames.shape[0]
-    plan = _video_level_plan(
-        cfg, dense_cfg, pyramid_base_geometry(h_true, w_true, cfg, dense_cfg),
-        true_hw=hw)
-    chunk = dense_cfg.video_chunk
-    if (plan is not None and chunk > 1 and t_total - 1 >= chunk
-            and not dense_cfg.video_warm_start):
-        n_chunks = (t_total - 1) // chunk
-        parts = [dense_flow_chunk_prepadded(
-            frames[c * chunk:c * chunk + chunk + 1], cfg, dense_cfg, hw, plan)
-            for c in range(n_chunks)]
-        if (t_total - 1) - n_chunks * chunk:
-            tail_cfg = dataclasses.replace(dense_cfg, video_chunk=0)
-            with span("dense.tail"):
-                parts.append(_video(frames[n_chunks * chunk:], cfg, tail_cfg))
-        with span("dense.cat"):
-            return _cat(parts)
-
-    def chain(levels_a, levels_b, d_cfg, pl, seed=None, want_top=False):
-        if pl is not None:
-            return dense_flow_from_levels_prepadded(
-                levels_a, levels_b, cfg, d_cfg, hw, pl, init_flow=seed,
+        def chain(levels_a, levels_b, d_cfg, pl, seed=None, want_top=False):
+            if pl is not None:
+                return dense_flow_from_levels_prepadded(
+                    levels_a, levels_b, cfg, d_cfg, hw, pl, init_flow=seed,
+                    return_top_flow=want_top)
+            return dense_flow_from_levels(
+                levels_a, levels_b, cfg, d_cfg, hw, init_flow=seed,
                 return_top_flow=want_top)
-        return dense_flow_from_levels(
-            levels_a, levels_b, cfg, d_cfg, hw, init_flow=seed,
-            return_top_flow=want_top)
 
-    warm_cfg = warm_plan = None
-    if dense_cfg.video_warm_start and t_total > 2:
-        warm_cfg = dataclasses.replace(
-            dense_cfg,
-            iter_schedule=tuple(dense_cfg.level_iters(lv)
-                                for lv in range(cfg.max_level))
-            + (dense_cfg.warm_top_iters,))
+        warm_cfg = warm_plan = None
+        if dense_cfg.video_warm_start and t_total > 2:
+            warm_cfg = dataclasses.replace(
+                dense_cfg,
+                iter_schedule=tuple(dense_cfg.level_iters(lv)
+                                    for lv in range(cfg.max_level))
+                + (dense_cfg.warm_top_iters,))
+            if plan is not None:
+                warm_plan = _video_level_plan(
+                    cfg, warm_cfg,
+                    pyramid_base_geometry(h_true, w_true, cfg, warm_cfg),
+                    true_hw=hw)
+                if warm_plan is None:  # lk_tpu falls back to the per-call
+                    plan = None        # chain for the whole warm video
         if plan is not None:
-            warm_plan = _video_level_plan(
-                cfg, warm_cfg,
-                pyramid_base_geometry(h_true, w_true, cfg, warm_cfg),
-                true_hw=hw)
-            if warm_plan is None:      # lk_tpu falls back to the per-call
-                plan = None            # chain for the whole warm video
-    if plan is not None:
-        _check_padded_build(dense_cfg)
-    levels = build_frame_levels(frames[0], cfg, dense_cfg)
-    results = []
-    seed = None
-    for t in range(1, t_total):
-        nxt = build_frame_levels(frames[t], cfg, dense_cfg)
-        if warm_cfg is None:
-            results.append(chain(levels, nxt, dense_cfg, plan))
-        elif t == 1:       # cold first pair seeds the warm chain
-            res, seed = chain(levels, nxt, dense_cfg, plan, want_top=True)
-            results.append(res)
-        else:
-            res, seed = chain(levels, nxt, warm_cfg, warm_plan, seed=seed,
-                              want_top=True)
-            results.append(res)
-        levels = nxt
-    return _stack(results)
+            _check_padded_build(dense_cfg)
+        levels = build_frame_levels(frames[0], cfg, dense_cfg)
+        results = []
+        seed = None
+        for t in range(1, t_total):
+            nxt = build_frame_levels(frames[t], cfg, dense_cfg)
+            if warm_cfg is None:
+                results.append(chain(levels, nxt, dense_cfg, plan))
+            elif t == 1:       # cold first pair seeds the warm chain
+                res, seed = chain(levels, nxt, dense_cfg, plan,
+                                  want_top=True)
+                results.append(res)
+            else:
+                res, seed = chain(levels, nxt, warm_cfg, warm_plan,
+                                  seed=seed, want_top=True)
+                results.append(res)
+            levels = nxt
+        return _stack(results)
 
 
 def dense_pyramidal_lk_multistream(

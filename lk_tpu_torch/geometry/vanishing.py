@@ -20,12 +20,13 @@ Every leaf of ``VPState`` has a leading stream axis (B, ...).  The pair
 scan is sequential per stream.  ``process_frame_pairs`` dispatches on the
 device of its inputs: a CPU tensor goes to ``process_frame_pairs_reference``
 (plain PyTorch), which walks the candidate pairs of all B streams together
-for ``n_steps`` steps, masking the streams that are done (a step past a
-stream's last candidate changes nothing of it); a CUDA tensor goes to the
-kernel ``lk_tpu_torch/csrc/vp_scan.cu``, one launch for the B streams, each
-walking its own candidates, with no fallback between the two.  Both give
-the same bits on the card (the kernel takes the plain version's operations
-in their order, the ring sums in the order of PyTorch's CUDA reduction).
+up to the largest candidate count, masking the streams that are done (a
+step past a stream's last candidate changes nothing of it); a CUDA tensor
+goes to the kernel ``lk_tpu_torch/csrc/vp_scan.cu``, one launch for the B
+streams, each walking its own candidates, with no fallback between the
+two.  Both give the same bits on the card (the kernel takes the plain
+version's operations in their order, the ring sums in the order of
+PyTorch's CUDA reduction).
 """
 
 from __future__ import annotations
@@ -102,8 +103,8 @@ def _set_slot(ring: torch.Tensor, slot: torch.Tensor, value: torch.Tensor,
 def frame_candidates(lines: FlowLineStats, accepted: torch.Tensor,
                      cfg: PipelineConfig, frame_size: Tuple[int, int]):
     """The frame's cross points in scan order: (cps (B, P, 2), cand
-    (B, P), n_cand (B,)) with the candidate pairs moved stably to the
-    front, as ``lk_tpu``'s argsort compaction."""
+    (B, P)) with the candidate pairs moved stably to the front, as
+    ``lk_tpu``'s argsort compaction."""
     width, _ = frame_size
     ii, jj = pair_indices(lines.start.shape[-2], lines.start.device)
     cps = cross_point_pairs(lines.start, lines.stop)
@@ -119,7 +120,7 @@ def frame_candidates(lines: FlowLineStats, accepted: torch.Tensor,
     cand = pair_ok & not_nan & above
     order = torch.argsort((~cand).to(torch.uint8), dim=1, stable=True)
     cps_c = cps.gather(1, order[..., None].expand_as(cps))
-    return cps_c, cand.gather(1, order), cand.sum(dim=1)
+    return cps_c, cand.gather(1, order)
 
 
 # Kernel launches of the CUDA pair scan, and calls of the plain version.
@@ -133,7 +134,7 @@ def reset_counters() -> None:
 
 
 def _check(state: VPState, cps_c: torch.Tensor, cand_c: torch.Tensor,
-           n_steps: int, cfg: PipelineConfig) -> None:
+           cfg: PipelineConfig) -> None:
     if cand_c.ndim != 2 or tuple(cps_c.shape) != (*cand_c.shape, 2):
         raise ValueError(f"the pair scan takes (B, P, 2) cross points and "
                          f"(B, P) candidates, got {tuple(cps_c.shape)} and "
@@ -160,44 +161,42 @@ def _check(state: VPState, cps_c: torch.Tensor, cand_c: torch.Tensor,
         if x.device != cps_c.device:
             raise ValueError(f"pair scan: {name} on {x.device}, the cross "
                              f"points on {cps_c.device}")
-    if not 0 <= n_steps <= p:
-        raise ValueError(f"pair scan: n_steps {n_steps} outside 0..{p}")
 
 
 def process_frame_pairs(state: VPState, cps_c: torch.Tensor,
-                        cand_c: torch.Tensor, n_steps: int,
-                        cfg: PipelineConfig, frame_size: Tuple[int, int]
+                        cand_c: torch.Tensor, cfg: PipelineConfig,
+                        frame_size: Tuple[int, int]
                         ) -> Tuple[VPState, FrameGeomOut]:
     """The cross-point / VP-update scan of one frame for B streams.
 
     ``cps_c``/``cand_c`` come from ``frame_candidates``; a stream's steps
-    are its first ``n_steps`` pairs (the caller reads the largest
-    candidate count from the device, or scans all P pairs).  Rows past a
-    stream's candidates stay zero and unmasked, as the JAX while loop
-    leaves them.  The input state is not written: the new one is
-    returned."""
+    are its candidate pairs.  Rows past a stream's candidates stay zero
+    and unmasked, as the JAX while loop leaves them.  The input state is
+    not written: the new one is returned."""
     if cps_c.device.type == "cpu":
-        return process_frame_pairs_reference(state, cps_c, cand_c, n_steps,
-                                             cfg, frame_size)
+        return process_frame_pairs_reference(state, cps_c, cand_c, cfg,
+                                             frame_size)
     if cps_c.device.type != "cuda":
         raise ValueError(f"process_frame_pairs: unsupported device "
                          f"{cps_c.device}")
-    return _process_frame_pairs_cuda(state, cps_c, cand_c, n_steps, cfg,
-                                     frame_size)
+    return _process_frame_pairs_cuda(state, cps_c, cand_c, cfg, frame_size)
 
 
 def process_frame_pairs_reference(state: VPState, cps_c: torch.Tensor,
-                                  cand_c: torch.Tensor, n_steps: int,
+                                  cand_c: torch.Tensor,
                                   cfg: PipelineConfig,
                                   frame_size: Tuple[int, int]
                                   ) -> Tuple[VPState, FrameGeomOut]:
     """Plain PyTorch form of ``process_frame_pairs``: the B streams step
-    together, ``n_steps`` steps."""
+    together up to the largest candidate count, which it reads from the
+    device (its one host read: this version is not captured in a CUDA
+    graph)."""
     global plain_calls
-    _check(state, cps_c, cand_c, n_steps, cfg)
+    _check(state, cps_c, cand_c, cfg)
     plain_calls += 1
     width, height = frame_size
     b, p = cand_c.shape
+    n_steps = int(cand_c.sum(dim=1).max()) if b else 0
     r_cap = cfg.vp_ref_num
     dev = cps_c.device
     # constants made on the device (no host copy: a CUDA graph captures it)
@@ -282,21 +281,19 @@ class _ScanArgs(ctypes.Structure):
             *VPState._fields, *(f"o_{k}" for k in VPState._fields),
             "cps", "cand",
             *FrameGeomOut._fields)]
-        + [(n, ctypes.c_int) for n in ("B", "P", "n_steps", "R", "H",
-                                       "aliasing")]
+        + [(n, ctypes.c_int) for n in ("B", "P", "R", "H", "aliasing")]
         + [(n, ctypes.c_float) for n in ("bound_x", "bound_y", "rate",
                                          "clip", "r_cap")])
 
 
 def _process_frame_pairs_cuda(state: VPState, cps_c: torch.Tensor,
-                              cand_c: torch.Tensor, n_steps: int,
-                              cfg: PipelineConfig,
+                              cand_c: torch.Tensor, cfg: PipelineConfig,
                               frame_size: Tuple[int, int]
                               ) -> Tuple[VPState, FrameGeomOut]:
     global kernel_launches
     from lk_tpu_torch import _build
 
-    _check(state, cps_c, cand_c, n_steps, cfg)
+    _check(state, cps_c, cand_c, cfg)
     b, p = cand_c.shape
     width, height = frame_size
     state = VPState(*(x.contiguous() for x in state))
@@ -314,7 +311,7 @@ def _process_frame_pairs_cuda(state: VPState, cps_c: torch.Tensor,
         vp_hidden=empty((b,), flag))
     args = _ScanArgs(
         *(x.data_ptr() for x in (*state, *new, cps_c, cand_c, *out)),
-        b, p, n_steps, cfg.vp_ref_num, cfg.vp_ref, int(cfg.vp_init_aliasing),
+        b, p, cfg.vp_ref_num, cfg.vp_ref, int(cfg.vp_init_aliasing),
         width * cfg.cp_thold, height * cfg.cp_thold, cfg.vp_update_rate,
         cfg.max_cp_std, float(cfg.vp_ref_num))
     lib = _build.library()

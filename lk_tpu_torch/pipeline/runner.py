@@ -215,9 +215,9 @@ def _cloned(tree):
 
 
 class _FrameProgram:
-    """One key's frame graph: a batched step, ``static``, from a static
-    carry (states, tracker fold) and frame batch, which writes its new
-    carry back into the static one and its outputs into its own memory."""
+    """One key's frame graph: a batched step from a static carry (states,
+    tracker fold) and frame batch, which writes its new carry back into the
+    static one and its outputs into its own memory."""
 
     def __init__(self):
         self.lock = threading.Lock()     # copy-in to clone-out
@@ -245,12 +245,12 @@ class _FrameProgram:
         chunk_graph_counts["captures"] += 1
 
     def step_in_place(self, step_batched):
-        """The captured work: one ``static`` step of the static carry and
-        frame batch, its new carry written back into the static carry;
-        returns the frame's outputs.  A new tensor that shares memory with
-        the static carry (passed through, or a view) is copied first, so
-        the write-back cannot change an output or a later source."""
-        carry, outs = step_batched(self.carry, self.gray, True)
+        """The captured work: one step of the static carry and frame
+        batch, its new carry written back into the static carry; returns
+        the frame's outputs.  A new tensor that shares memory with the
+        static carry (passed through, or a view) is copied first, so the
+        write-back cannot change an output or a later source."""
+        carry, outs = step_batched(self.carry, self.gray)
         held = {t.untyped_storage().data_ptr() for t in _leaves(self.carry)}
 
         def apart(t):
@@ -294,9 +294,8 @@ def make_batched_chunk_runner(cfg: PipelineConfig,
     and a frame batch's shapes and types, device and stream): the key's
     first chunk runs op by op, so every kernel and cache is built outside
     a capture, and then captures; later chunks copy the carry in, replay
-    once a frame and clone the outputs out.  The graph's step is
-    ``step_batched``'s ``static`` form, which gives the op-by-op step's
-    bits with no host read (tests/test_torch_vp_graph.py).
+    once a frame and clone the outputs out.  The step reads nothing back
+    to the host, so the graph replays the op-by-op step's work.
     init_fn(first_gray (B, H, W)) -> states with the first detection."""
     width, height = frame_size
     roi_mask, sub_masks = build_roi_masks(width, height, cfg.roi)

@@ -1,19 +1,17 @@
 """The per-frame step of the VP pipeline: counterpart of
 ``lk_tpu.pipeline.step`` (``preprocess_frame``, ``check_inside``,
 ``compact_slots``, ``tracker_row_band`` and ``make_step``'s ``step``,
-``detect``, ``_pre``, ``_post`` and ``step_batched``).
+``detect``, ``_pre`` and ``_post`` (here one ``_update``, detecting every
+frame between them) and ``step_batched``).
 
 The layers run in the reference's order (LK_Final.py:508-705): track ->
 ROI containment gate -> flow-line stats + EMA filter -> cross-point / VP
-pair scan -> show/hide -> replenishment -> counters.  ``_pre``, ``_post``
-and ``detect`` work on a batch of B streams (leading axis), which
+pair scan -> show/hide -> replenishment -> counters.  ``_update`` and
+``detect`` work on a batch of B streams (leading axis), which
 ``lk_tpu`` gets by ``vmap``; the single-stream ``step`` tracks with the
 per-point ``track_points`` and runs them on a batch of one.
 
-Host reads: one per frame, of the largest candidate-pair count (the pair
-scan's trip count) and of whether any stream replenishes (detection runs
-only then, as ``lk_tpu``'s ``lax.cond`` on the trigger, ``any`` of it
-for a batch).
+The step reads nothing back to the host.
 """
 
 from __future__ import annotations
@@ -133,11 +131,11 @@ def make_step(cfg: PipelineConfig, frame_size: Tuple[int, int],
         pts = torch.where(pval[..., :s, None], pxy[..., :s, :], 0.0)
         return pts, pval[..., :s]
 
-    def _pre(state: PipelineState, p1, st, static: bool = False):
-        """Containment, flow lines, VP scan, show/hide and the replenish
-        trigger of B streams.  ``static``: no host read, for a CUDA graph's
-        capture: the scan runs over every pair (steps past a stream's
-        candidates change nothing) and the detection always runs."""
+    def _update(state: PipelineState, gray, p1, st):
+        """The new state and outputs of B streams from their tracked
+        points: containment, flow lines, VP scan, show/hide, then
+        replenishment from the frame's detection, which runs every frame
+        (a stream that does not trigger ignores its pools)."""
         b = p1.shape[0]
         flat_pts = state.pts.reshape(b, g * s, 2)
         st = check_inside(p1, roi_t, st)
@@ -163,37 +161,25 @@ def make_step(cfg: PipelineConfig, frame_size: Tuple[int, int],
                    | (state.tp_ult == cfg.tp_update_time))
 
         with span("step.vp_scan"):
-            cps_c, cand_c, n_cand = frame_candidates(stats_all, accepted, cfg,
-                                                     (width, height))
-            if static:
-                n_steps, any_trigger = cand_c.shape[1], True
-            else:               # the one host read of the frame
-                n_steps, any_trigger = torch.stack(
-                    [n_cand.max(), trigger.any().to(n_cand.dtype)]).tolist()
+            cps_c, cand_c = frame_candidates(stats_all, accepted, cfg,
+                                             (width, height))
             vp_state, geom = process_frame_pairs(
-                state.vp, cps_c, cand_c, int(n_steps), cfg, (width, height))
+                state.vp, cps_c, cand_c, cfg, (width, height))
             vp_state, geom = vp_show_step(vp_state, geom, cfg)
         if cfg.reset_avg_len_on_hide:
             avg_len = torch.where(geom.vp_hidden[:, None], cfg.min_fl_len,
                                   avg_len)
-        return dict(trigger=trigger, any_trigger=bool(any_trigger), live=live,
-                    surv=surv, new=new, pts_after=pts_after,
-                    valid_after=surv, avg_len=avg_len, vp_state=vp_state,
-                    geom=geom, stats_all=stats_all, accepted=accepted)
 
-    def _post(state: PipelineState, gray, ctx, det_pts, det_valid):
-        """Replenishment and the new state and outputs of B streams."""
-        trigger = ctx["trigger"]
-        pts_after, valid_after = ctx["pts_after"], ctx["valid_after"]
+        with span("step.detect"):
+            det_pts, det_valid = detect(gray)
         if cfg.fl_upd_meth == "REP":
             do_rep = trigger & det_valid.any(dim=2).all(dim=1)
             pts_next = torch.where(do_rep[:, None, None, None], det_pts,
                                    pts_after)
-            valid_next = torch.where(do_rep[:, None, None], det_valid,
-                                     valid_after)
+            valid_next = torch.where(do_rep[:, None, None], det_valid, surv)
         elif cfg.fl_upd_meth == "EXT":
             # old survivors first, new appended, keep the newest s per group
-            cp_, cv_ = compact_slots(pts_after, valid_after)
+            cp_, cv_ = compact_slots(pts_after, surv)
             both_p = torch.cat([cp_, det_pts], dim=2)
             both_v = torch.cat([cv_, det_valid], dim=2)
             n_tot = both_v.sum(dim=2, keepdim=True)
@@ -204,25 +190,22 @@ def make_step(cfg: PipelineConfig, frame_size: Tuple[int, int],
             pts_next = torch.where(trigger[:, None, None, None],
                                    ext_p[:, :, :s], pts_after)
             valid_next = torch.where(trigger[:, None, None], ext_v[:, :, :s],
-                                     valid_after)
+                                     surv)
         else:
             raise ValueError(cfg.fl_upd_meth)
         tp_ult = torch.where(trigger, 0, state.tp_ult) + 1
-        vp_state, geom, stats_all = (ctx["vp_state"], ctx["geom"],
-                                     ctx["stats_all"])
         new_state = PipelineState(prev_gray=gray, pts=pts_next,
-                                  valid=valid_next, avg_len=ctx["avg_len"],
+                                  valid=valid_next, avg_len=avg_len,
                                   vp=vp_state, tp_ult=tp_ult)
         motion = classify_flow_lines(
             stats_all.start, stats_all.stop,
-            ctx["accepted"] & vp_state.vp_init[:, None], vp_state.vp_xy)
+            accepted & vp_state.vp_init[:, None], vp_state.vp_xy)
         outputs = FrameOutputs(
             update_rows=geom.update_rows, update_mask=geom.update_mask,
             show_row=geom.show_row, show_mask=geom.show_mask,
             vp_hidden=geom.vp_hidden, cp_xy=geom.cp_xy, cp_mask=geom.cp_mask,
             line_start=stats_all.start, line_stop=stats_all.stop,
-            line_mask=ctx["accepted"], pts=ctx["new"],
-            pts_valid=ctx["surv"], live_count=ctx["live"],
+            line_mask=accepted, pts=new, pts_valid=surv, live_count=live,
             vp_xy=vp_state.vp_xy, vp_init=vp_state.vp_init,
             motion_labels=motion.labels,
             motion_fracs=torch.stack([motion.frac_static, motion.frac_away,
@@ -231,42 +214,27 @@ def make_step(cfg: PipelineConfig, frame_size: Tuple[int, int],
         )
         return new_state, outputs
 
-    def _detect_if(ctx, grays: torch.Tensor):
-        """Detection of the B frames when any stream replenishes (read in
-        ``_pre``'s host read), else empty pools."""
-        if ctx["any_trigger"]:
-            with span("step.detect"):
-                return detect(grays)
-        b = grays.shape[0]
-        return (torch.zeros((b, g, s, 2), dtype=torch.float32,
-                            device=grays.device),
-                torch.zeros((b, g, s), dtype=torch.bool, device=grays.device))
-
     def step(state: PipelineState, gray: torch.Tensor):
         """One frame of one stream: all G*S slots tracked by the per-point
-        tracker, then ``_pre``/``_post`` on a batch of one stream."""
+        tracker, then ``_update`` on a batch of one stream."""
         gray = gray.to(torch.float32)
         p1, st, _err = track_points(state.prev_gray, gray,
                                     state.pts.reshape(g * s, 2),
                                     state.valid.reshape(g * s), cfg.lk)
         states = with_stream_axis(state)
-        grays = gray[None]
-        ctx = _pre(states, p1[None], st[None])
-        states, outs = _post(states, grays, ctx, *_detect_if(ctx, grays))
+        states, outs = _update(states, gray[None], p1[None], st[None])
         return without_stream_axis(states), without_stream_axis(outs)
 
-    def step_batched(carry, grays: torch.Tensor, static: bool = False):
+    def step_batched(carry, grays: torch.Tensor):
         """Step B streams at once; carry = (states, prev_folded), the
-        previous frame batch's tracker fold (``fold_tracking_levels``).
-        ``static`` (``_pre``) gives the same bits with no host read."""
+        previous frame batch's tracker fold (``fold_tracking_levels``)."""
         states, prev_folded = carry
         grays = grays.to(torch.float32)
         b = grays.shape[0]
         p1, st, _err, next_folded = track_points_batched_prepped(
             prev_folded, grays, states.pts.reshape(b, g * s, 2),
             states.valid.reshape(b, g * s), cfg.lk, row_band=row_band)
-        ctx = _pre(states, p1, st, static)
-        states, outs = _post(states, grays, ctx, *_detect_if(ctx, grays))
+        states, outs = _update(states, grays, p1, st)
         return (states, next_folded), outs
 
     return step, detect, step_batched

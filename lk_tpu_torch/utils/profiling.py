@@ -95,9 +95,9 @@ def device_trace(log_dir: str):
 
     The trace holds the port's spans as named ranges: on the dense path
     ``dense.pair`` (a ``dense_pyramidal_lk`` call), ``dense.video`` (a
-    ``dense_pyramidal_lk_video`` call), ``dense.chunk``, ``dense.tail`` and
-    ``dense.cat`` (its chunks, the leftover pairs and the output copy); on
-    the VP path ``tracker.*``, ``step.*``, ``serve.*`` and ``video.*``."""
+    ``dense_pyramidal_lk_video`` call), ``dense.chunk`` and ``dense.cat``
+    (its chunks, the leftover pairs' one, and the output copy); on the VP
+    path ``tracker.*``, ``step.*``, ``serve.*`` and ``video.*``."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]

@@ -604,29 +604,27 @@ def test_ring_sums_take_the_scan_kernels_order(cuda_device, ring):
 def test_vp_scan_kernel_matches_plain(cuda_device, b, p, ring):
     """The scan kernel equals process_frame_pairs_reference on the card
     bit for bit in every leaf of the new state and of the outputs: every
-    state kind x candidate fill x trip count of tests/vp_scan_cases.py; one
-    launch a call, no plain call, the inputs unchanged.  A ring of 20
+    state kind x candidate fill of tests/vp_scan_cases.py; one launch a
+    call, no plain call, the inputs unchanged.  A ring of 20
     slots takes the kernel's 64-slot instance."""
-    from vp_scan_cases import CANDS, STATES, STEPS, same_bits, scan_case
+    from vp_scan_cases import CANDS, STATES, same_bits, scan_case
 
     updates = inits = 0
-    for i, (sk, ck, nk) in enumerate(
-            (s, c, n) for s in STATES for c in CANDS for n in STEPS):
-        cfg, state, cps, cand, n_steps, size = scan_case(
-            sk, ck, nk, b, p, seed=1000 * b + 10 * p + i, ring=ring,
+    for i, (sk, ck) in enumerate((s, c) for s in STATES for c in CANDS):
+        cfg, state, cps, cand, size = scan_case(
+            sk, ck, b, p, seed=1000 * b + 10 * p + i, ring=ring,
             device=cuda_device)
         before = [x.clone() for x in (*state, cps, cand)]
         vanishing.reset_counters()
-        got = vanishing.process_frame_pairs(state, cps, cand, n_steps, cfg,
-                                            size)
+        got = vanishing.process_frame_pairs(state, cps, cand, cfg, size)
         assert (vanishing.kernel_launches, vanishing.plain_calls) == (1, 0)
         want = vanishing.process_frame_pairs_reference(state, cps, cand,
-                                                       n_steps, cfg, size)
+                                                       cfg, size)
         torch.cuda.synchronize()
         names = vanishing.VPState._fields + vanishing.FrameGeomOut._fields
         for name, g, w in zip(names, _scan_leaves(got), _scan_leaves(want)):
             assert g.device.type == "cuda"
-            assert same_bits(g, w), (sk, ck, nk, name)
+            assert same_bits(g, w), (sk, ck, name)
         assert all(same_bits(x, y)
                    for x, y in zip(before, (*state, cps, cand)))
         updates += int(want[1].update_mask.sum())
@@ -641,16 +639,15 @@ def test_vp_scan_kernel_in_a_cuda_graph(cuda_device):
     theirs (each stream's trip count is read on the card)."""
     from vp_scan_cases import same_bits, scan_case
 
-    cases = [scan_case(sk, "mixed", "all", 64, 190, seed=s,
-                       device=cuda_device)
+    cases = [scan_case(sk, "mixed", 64, 190, seed=s, device=cuda_device)
              for s, sk in enumerate(["aliased", "mid_fill"])]
-    cfg, state, cps, cand, n_steps, size = cases[0]
+    cfg, state, cps, cand, size = cases[0]
     static = [x.clone() for x in (*state, cps, cand)]
 
     def call():
         st = vanishing.VPState(*static[:len(state)])
-        return vanishing.process_frame_pairs(st, static[-2], static[-1],
-                                             n_steps, cfg, size)
+        return vanishing.process_frame_pairs(st, static[-2], static[-1], cfg,
+                                             size)
 
     call()                                  # loads the library
     torch.cuda.synchronize()
@@ -659,12 +656,12 @@ def test_vp_scan_kernel_in_a_cuda_graph(cuda_device):
     with torch.cuda.graph(graph):
         outs = call()
     assert vanishing.kernel_launches == 1
-    for c_cfg, c_state, c_cps, c_cand, _, _ in cases:
+    for c_cfg, c_state, c_cps, c_cand, _ in cases:
         for dst, src in zip(static, (*c_state, c_cps, c_cand)):
             dst.copy_(src)
         graph.replay()
         want = vanishing.process_frame_pairs_reference(
-            c_state, c_cps, c_cand, n_steps, c_cfg, size)
+            c_state, c_cps, c_cand, c_cfg, size)
         eager = call()
         torch.cuda.synchronize()
         for g, e, w in zip(_scan_leaves(outs), _scan_leaves(eager),
@@ -677,22 +674,19 @@ def test_vp_scan_kernel_in_a_cuda_graph(cuda_device):
 def test_vp_scan_kernel_rejects_bad_input(cuda_device):
     from vp_scan_cases import scan_case
 
-    cfg, state, cps, cand, n_steps, size = scan_case(
-        "aliased", "mixed", "max", 3, 40, seed=5, device=cuda_device)
+    cfg, state, cps, cand, size = scan_case(
+        "aliased", "mixed", 3, 40, seed=5, device=cuda_device)
     with pytest.raises(TypeError):
-        vanishing.process_frame_pairs(state, cps.double(), cand, n_steps,
-                                      cfg, size)
-    with pytest.raises(ValueError):
-        vanishing.process_frame_pairs(state, cps, cand, 41, cfg, size)
+        vanishing.process_frame_pairs(state, cps.double(), cand, cfg, size)
     with pytest.raises(ValueError):         # the state on the CPU
         cpu = vanishing.VPState(*(x.cpu() for x in state))
-        vanishing.process_frame_pairs(cpu, cps, cand, n_steps, cfg, size)
+        vanishing.process_frame_pairs(cpu, cps, cand, cfg, size)
     import dataclasses
     big = dataclasses.replace(cfg, vp_ref_num=65)
     wide = state._replace(ring_xy=torch.zeros(3, 65, 2, device=cuda_device))
     # the launcher's limits (64 ring slots, the pairs' shared memory)
     with pytest.raises(RuntimeError, match="vp_scan kernel launch failed"):
-        vanishing.process_frame_pairs(wide, cps, cand, n_steps, big, size)
+        vanishing.process_frame_pairs(wide, cps, cand, big, size)
 
 
 # --- the apps on the card ----------------------------------------------------
@@ -1091,6 +1085,31 @@ def test_pair_graph_equals_eager(cuda_device, path, hw):
     for out in outs:
         assert tuple(out.flow.shape) == (*hw, 2)
         assert _same(out, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_pairs", [3, 5, 33])
+def test_chunked_video_equals_per_frame_chain(cuda_device, n_pairs):
+    """The 1080p video at the production config (chunk 4): one pyramid
+    launch a chunk, the leftover pairs one shorter chunk (9 for a 34-frame
+    clip), and flow, min_eig and valid bit-equal to the per-frame
+    chain's."""
+    import dataclasses
+
+    from lk_tpu_torch.config import DenseLKConfig, LKConfig
+    from lk_tpu_torch.flow import dense
+
+    cfg, dcfg = LKConfig(), DenseLKConfig(**PAIR_PATHS["A"])
+    assert dcfg.video_chunk == 4
+    frames = _frames(n_pairs + 1, 1080, 1920, cuda_device)
+    blur.reset_counters()
+    chunked = dense.dense_pyramidal_lk_video(frames, cfg, dcfg)
+    torch.cuda.synchronize()
+    assert blur.kernel_launches == -(-n_pairs // 4)
+    per_frame = dense.dense_pyramidal_lk_video(
+        frames, cfg, dataclasses.replace(dcfg, video_chunk=0))
+    assert tuple(chunked.flow.shape) == (n_pairs, 1080, 1920, 2)
+    assert _same(chunked, per_frame)
 
 
 @pytest.mark.cuda

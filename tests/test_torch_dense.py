@@ -70,8 +70,9 @@ def port_chunked(clip):
 
 
 def test_video_matches_lk_tpu(clip, port_chunked):
-    """8 frames = 2 chunks of 3 pairs + a 1-pair per-frame tail, chunked on
-    both sides: flow, min_eig and valid within the bf16 tolerance."""
+    """8 frames = 2 chunks of 3 pairs + a 1-pair chunk in the port (lk_tpu
+    runs that pair through its per-frame chain): flow, min_eig and valid
+    within the bf16 tolerance."""
     jr = jd.dense_pyramidal_lk_video(jnp.asarray(clip), CFG, DCFG)
     _assert_results_close(jr, port_chunked, flow_max=0.05, flow_mean=5e-3,
                           eig_rel=5e-3, flips=1e-3)
@@ -88,12 +89,28 @@ def test_video_matches_lk_tpu_f32(clip, port_chunked, monkeypatch):
                           eig_rel=1e-5, flips=1e-4)
 
 
-def test_chunked_equals_per_frame(clip, port_chunked):
-    """The port's chunked chain equals its per-frame chain bit for bit."""
+@pytest.mark.parametrize("n_pairs", [3, 4, 5, 7])
+def test_chunked_equals_per_frame(clip, n_pairs, monkeypatch):
+    """The port's chunked chain equals its per-frame chain bit for bit, at
+    chunk 4: one short chunk, no leftover, leftover 1 and leftover 3, the
+    leftover pairs one shorter chunk with one pyramid build."""
+    frames = torch.from_numpy(clip[:n_pairs + 1])
+    builds = []
+    real = td.build_pyramid
+
+    def counted(x, *a, **k):
+        builds.append(x.shape[0])
+        return real(x, *a, **k)
+
+    monkeypatch.setattr(td, "build_pyramid", counted)
+    chunked = td.dense_pyramidal_lk_video(
+        frames, TCFG, dataclasses.replace(TDCFG, video_chunk=4))
+    # one build of each chunk's frames
+    assert builds == [min(4, n_pairs - c) + 1 for c in range(0, n_pairs, 4)]
     per_frame = td.dense_pyramidal_lk_video(
-        torch.from_numpy(clip), TCFG,
-        dataclasses.replace(TDCFG, video_chunk=0))
-    for a, b in zip(port_chunked, per_frame):
+        frames, TCFG, dataclasses.replace(TDCFG, video_chunk=0))
+    assert chunked.flow.shape == (n_pairs, 128, 1024, 2)
+    for a, b in zip(chunked, per_frame):
         assert torch.equal(a, b)
 
 

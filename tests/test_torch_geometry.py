@@ -159,10 +159,9 @@ def test_vp_scan_matches_lk_tpu(rng, monkeypatch, preset):
               for b in range(3)]
         lines = tfl.FlowLineStats(*(torch.from_numpy(np.stack(
             [np.asarray(x[k]) for x in jl])) for k in range(5)))
-        cps, cand, n_cand = tvp.frame_candidates(
-            lines, torch.from_numpy(a), tcfg, size)
-        tstate, tout = tvp.process_frame_pairs(
-            tstate, cps, cand, int(n_cand.max()), tcfg, size)
+        cps, cand = tvp.frame_candidates(lines, torch.from_numpy(a), tcfg,
+                                         size)
+        tstate, tout = tvp.process_frame_pairs(tstate, cps, cand, tcfg, size)
         tstate, tout = tvp.vp_show_step(tstate, tout, tcfg)
         for b in range(3):
             jo = jouts[b]

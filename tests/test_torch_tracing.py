@@ -1,6 +1,6 @@
 """The port's spans (``utils.profiling.span``): a shared no-op with no
 profiler, named ranges under one, nested where the dense path's drivers
-meet (a video call, its chunks, its tail, its output copy), and the VP
+meet (a video call, its chunks, its output copy), and the VP
 path's names kept.  CPU only; the dense shapes and configs of
 tests/test_torch_dense.py."""
 
@@ -26,7 +26,8 @@ DENSE = ("dense.",)
 
 @pytest.fixture(scope="module")
 def clip():
-    """8 frames of 128x1024: 7 pairs, two chunks of 3 and a 1-pair tail."""
+    """8 frames of 128x1024: 7 pairs, two chunks of 3 and a 1-pair
+    chunk."""
     g = torch.Generator().manual_seed(1234)
     x = torch.rand((8, 1, 32, 256), generator=g)
     return torch.nn.functional.interpolate(
@@ -104,8 +105,8 @@ def test_no_span_site_opens_a_range_without_profiler(clip, monkeypatch):
     assert opened == []
     with profile(activities=[ProfilerActivity.CPU]):
         work()
-    assert {"dense.pair", "dense.video", "dense.chunk", "dense.tail",
-            "dense.cat", "step.vp_scan"} <= set(opened)
+    assert {"dense.pair", "dense.video", "dense.chunk", "dense.cat",
+            "step.vp_scan"} <= set(opened)
 
 
 def test_record_function_only_in_the_helper():
@@ -134,35 +135,39 @@ def test_pair_spans(clip):
     assert ops and all(inside(r, pair) for r in ops)
 
 
-def test_chunked_video_spans(clip):
-    """7 pairs at video_chunk 3: one outermost ``dense.video`` holding two
-    ``dense.chunk``, one ``dense.tail`` (the leftover pair's per-frame
-    chain, with no ``dense.video`` of its own) and one ``dense.cat``; the
-    pyramid and level work inside a chunk or the tail."""
+def test_chunked_video_spans(clip, monkeypatch):
+    """7 pairs at video_chunk 3: one outermost ``dense.video`` holding
+    three ``dense.chunk`` (3, 3 and the leftover pair, each building its
+    own frames' pyramids) and then one ``dense.cat``; the pyramid and level
+    work each inside exactly one chunk."""
     n_pairs = clip.shape[0] - 1
-    assert n_pairs % DCFG.video_chunk
+    assert n_pairs % DCFG.video_chunk == 1
+    builds = []
+    real = td.build_pyramid
+
+    def counted(x, *a, **k):
+        builds.append(x.shape[0])
+        return real(x, *a, **k)
+
+    monkeypatch.setattr(td, "build_pyramid", counted)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         td.dense_pyramidal_lk_video(clip, CFG, DCFG)
+    assert builds == [4, 4, 2]
     rs = ranges(prof)
     by = {}
     for r in rs:
         by.setdefault(r[0], []).append(r)
+    assert set(by) == {"dense.video", "dense.chunk", "dense.cat"}
     (video,) = by["dense.video"]
     assert all(inside(r, video) for r in rs)
-    n_chunks = n_pairs // DCFG.video_chunk
-    assert len(by["dense.chunk"]) == n_chunks
-    assert len(by["dense.tail"]) == len(by["dense.cat"]) == 1
-    assert set(by) == {"dense.video", "dense.chunk", "dense.tail",
-                       "dense.cat"}
-    (tail,) = by["dense.tail"]
+    chunks = by["dense.chunk"]
+    assert len(chunks) == 3 and len(by["dense.cat"]) == 1
     ops = _work_ops(prof)
     assert ops
     for r in ops:
-        assert sum(inside(r, o) for o in by["dense.chunk"] + [tail]) == 1
-    assert any(inside(r, tail) for r in ops)
-    assert all(any(inside(r, c) for r in ops) for c in by["dense.chunk"])
-    assert inside(by["dense.cat"][0], video)
-    assert by["dense.cat"][0][1] >= tail[2]
+        assert sum(inside(r, c) for c in chunks) == 1
+    assert all(any(inside(r, c) for r in ops) for c in chunks)
+    assert by["dense.cat"][0][1] >= chunks[-1][2]
 
 
 def test_vp_step_keeps_its_span_names():

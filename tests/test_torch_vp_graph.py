@@ -1,9 +1,11 @@
-"""The static form of the batched VP step, which the serving runner's CUDA
-graph captures (``pipeline/runner.py``): with no host read it scans every
-cross-point pair and always detects, and must give the op-by-op step's
-bits.  On the CPU, at the tiny fleet cell's size
+"""The batched VP step, which the serving runner's CUDA graph captures
+(``pipeline/runner.py``): it reads nothing back to the host and detects
+every frame, and the frame program around the graph steps a chunk as the
+op-by-op loop does.  On the CPU, at the tiny fleet cell's size
 (``gpubench/tests/_tiny_fleet.py``): 4 streams of 320x180 over a chunk
 with a forced replenish and VP updates among its steps."""
+
+import dataclasses
 
 import pytest
 import torch
@@ -11,9 +13,8 @@ import torch
 from gpubench.drivers.vp_fleet import clone
 from gpubench.tests._tiny_fleet import run_chunks, tiny_fleet_spec
 from lk_tpu_torch.flow.sparse import fold_tracking_levels
-from lk_tpu_torch.geometry import vanishing
 from lk_tpu_torch.ops.rasterize import build_roi_masks
-from lk_tpu_torch.pipeline import runner
+from lk_tpu_torch.pipeline import runner, step
 from lk_tpu_torch.pipeline.step import make_step, tracker_row_band
 
 SEED = 2 ** 31 + 21
@@ -32,47 +33,55 @@ def chunk():
     return cell, kept["start"], g.reshape((n, b) + g.shape[1:]).transpose(0, 1)
 
 
-def _steps(cell, start, frames, static: bool) -> list:
-    """(state, outputs) after each frame of the chunk, op by op."""
+def _steps(cell, start, frames, cfg=None) -> list:
+    """(state, outputs) after each frame of the chunk, op by op, under
+    ``cfg`` (the cell's own by default)."""
+    cfg = cfg or cell.cfg
     c = cell.config
-    roi_mask, sub_masks = build_roi_masks(c["width"], c["height"],
-                                          cell.cfg.roi)
-    _, _, step_batched = make_step(cell.cfg, (c["width"], c["height"]),
+    roi_mask, sub_masks = build_roi_masks(c["width"], c["height"], cfg.roi)
+    _, _, step_batched = make_step(cfg, (c["width"], c["height"]),
                                    roi_mask, sub_masks, device="cpu")
-    band = tracker_row_band(cell.cfg, c["height"], sub_masks)
-    carry = (clone(start), fold_tracking_levels(start.prev_gray, cell.cfg.lk,
+    band = tracker_row_band(cfg, c["height"], sub_masks)
+    carry = (clone(start), fold_tracking_levels(start.prev_gray, cfg.lk,
                                                 row_band=band))
     out = []
     for t in range(frames.shape[1]):
-        carry, o = step_batched(carry, frames[:, t], static)
+        carry, o = step_batched(carry, frames[:, t])
         out.append((carry[0], o))
     return out
 
 
-def test_the_static_step_gives_the_op_by_op_bits(chunk, monkeypatch):
+@pytest.mark.parametrize("method", ["REP", "EXT"])
+def test_untriggered_streams_ignore_detection(chunk, method, monkeypatch):
+    """The step detects every frame and a stream that does not trigger a
+    replenish ignores its pools: each frame's state and outputs are, bit
+    for bit, those of a step whose detection returns empty pools for every
+    stream that does not trigger.  EXT is the classify preset's method."""
     cell, start, frames = chunk
-    scans = []
-    real = vanishing.process_frame_pairs
+    cfg = dataclasses.replace(cell.cfg, fl_upd_meth=method)
+    every = _steps(cell, start, frames, cfg)
+    # the trigger of each stream in each frame, as the step computes it
+    tp_ult = [start.tp_ult] + [st.tp_ult for st, _ in every[:-1]]
+    triggered = [(o.live_count < int(cfg.tp_num * cfg.tp_update_rate))
+                 | (u == cfg.tp_update_time)
+                 for (_, o), u in zip(every, tp_ult)]
+    assert all(bool((st.tp_ult[tr] == 1).all())
+               for (st, _), tr in zip(every, triggered))
+    flat = torch.stack(triggered)
+    assert flat.any() and not flat.all()
+    assert any(bool(o.update_mask.any()) for _, o in every)
+    real = step.good_features_from_response
+    frame = iter(triggered)
 
-    def counted(state, cps, cand, n_steps, *a, **k):
-        scans.append((n_steps, cand.shape[1]))
-        return real(state, cps, cand, n_steps, *a, **k)
+    def empty_unless_triggered(resp, masks, fcfg):
+        xy, val = real(resp, masks, fcfg)
+        return xy, val & next(frame)[:, None, None]
 
-    monkeypatch.setattr("lk_tpu_torch.pipeline.step.process_frame_pairs",
-                        counted)
-    plain = _steps(cell, start, frames, static=False)
-    eager_scans, scans[:] = list(scans), []
-    static = _steps(cell, start, frames, static=True)
-    # the op-by-op scans stop at the last candidate; the static ones run on
-    # over every pair
-    assert any(n < p for n, p in eager_scans)
-    assert all(n == p for n, p in scans)
-    # frames with and without a replenish trigger: the static step's
-    # detection runs where the op-by-op step skips it
-    triggered = [bool((st.tp_ult == 1).any()) for st, _ in plain]
-    assert any(triggered) and not all(triggered)
-    assert any(bool(o.update_mask.any()) for _, o in plain)
-    for (sa, oa), (sb, ob) in zip(plain, static):
+    monkeypatch.setattr(step, "good_features_from_response",
+                        empty_unless_triggered)
+    masked = _steps(cell, start, frames, cfg)
+    assert next(frame, None) is None
+    for (sa, oa), (sb, ob) in zip(every, masked):
         for a, b in zip(runner._leaves((sa, oa)), runner._leaves((sb, ob))):
             assert a.shape == b.shape and torch.equal(a, b)
 
@@ -116,7 +125,7 @@ def test_a_frame_program_steps_a_chunk_in_place(chunk):
     runner.reset_counters()
     states, outs = prog.run(carry, frames)
     assert runner.chunk_graph_counts["replays"] == 1
-    plain = _steps(cell, start, frames, static=False)
+    plain = _steps(cell, start, frames)
     assert len(outs) == len(plain)
     for o, (_, want) in zip(outs, plain):
         for a, b in zip(runner._leaves(o), runner._leaves(want)):

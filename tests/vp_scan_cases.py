@@ -1,7 +1,7 @@
 """Inputs of the VP pair scan (``geometry.vanishing.process_frame_pairs``)
 for the tests that hold its CUDA kernel to its plain version: states of
-every kind the scan meets, candidate sets of every fill and trip counts
-of every kind, made with numpy from a seed.  Imports neither JAX nor cv2
+every kind the scan meets and candidate sets of every fill, made with
+numpy from a seed.  Imports neither JAX nor cv2
 (the card's machine has neither)."""
 
 from __future__ import annotations
@@ -21,9 +21,6 @@ SIZE = (860, 483)                # (W, H): cp_thold bounds of 57.3, 32.2 px
 # vp_init_aliasing off; just hidden by vp_show_step
 STATES = ("fresh", "mid_fill", "aliased", "no_aliasing", "just_hidden")
 CANDS = ("none", "all", "mixed")
-# n_steps: the largest candidate count, every pair, or fewer than one
-# stream's candidates
-STEPS = ("max", "all", "short")
 
 
 def scan_config(state_kind: str, ring: int = 15):
@@ -87,8 +84,8 @@ def scan_state(kind: str, cfg, b: int, rng) -> VPState:
 
 
 def scan_candidates(kind: str, state: VPState, p: int, rng):
-    """(cps (B, P, 2), cand (B, P), n_cand (B,)) with the candidates first,
-    as ``frame_candidates`` orders them: most near the stream's VP (or a
+    """(cps (B, P, 2), cand (B, P)) with the candidates first, as
+    ``frame_candidates`` orders them: most near the stream's VP (or a
     centre), some within the close bound's reach, some far; NaN and far
     values in the slots past the candidates."""
     b = state.vp_xy.shape[0]
@@ -109,28 +106,18 @@ def scan_candidates(kind: str, state: VPState, p: int, rng):
     cand = np.arange(p)[None] < n_cand[:, None]
     rest = ~cand & (rng.random((b, p)) < 0.3)
     cps[rest] = np.nan
-    return _f32(cps), torch.from_numpy(cand), _i64(n_cand)
+    return _f32(cps), torch.from_numpy(cand)
 
 
-def scan_steps(kind: str, n_cand: torch.Tensor, p: int) -> int:
-    most = int(n_cand.max())
-    if kind == "max":
-        return most
-    if kind == "all":
-        return p
-    return max(most - max(most // 3, 1), 0)
-
-
-def scan_case(state_kind: str, cand_kind: str, steps_kind: str, b: int,
-              p: int, seed: int, ring: int = 15, device="cpu"):
-    """(cfg, state, cps, cand, n_steps, size) of one case on ``device``."""
+def scan_case(state_kind: str, cand_kind: str, b: int, p: int, seed: int,
+              ring: int = 15, device="cpu"):
+    """(cfg, state, cps, cand, size) of one case on ``device``."""
     rng = np.random.default_rng(seed)
     cfg = scan_config(state_kind, ring)
     state = scan_state(state_kind, cfg, b, rng)
-    cps, cand, n_cand = scan_candidates(cand_kind, state, p, rng)
-    n_steps = scan_steps(steps_kind, n_cand, p)
+    cps, cand = scan_candidates(cand_kind, state, p, rng)
     state = VPState(*(x.to(device) for x in state))
-    return cfg, state, cps.to(device), cand.to(device), n_steps, SIZE
+    return cfg, state, cps.to(device), cand.to(device), SIZE
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
