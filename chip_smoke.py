@@ -1935,7 +1935,8 @@ def serving_timing(staging, card, passes=2):
 
 
 STAGES = ("serve.finish", "tracker.fold", "tracker.gather", "tracker.refine",
-          "step.detect", "step.vp_scan", "serve.compact", "serve.drain")
+          "step.detect", "step.vp_scan", "serve.compact", "serve.book",
+          "serve.drain")
 VIDEO_STAGES = ("video.ingest", "tracker.pyramid", "tracker.scharr",
                 "tracker.refine", "step.detect", "step.vp_scan",
                 "video.drain")

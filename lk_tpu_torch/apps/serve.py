@@ -42,10 +42,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--height", type=int, default=720)
     p.add_argument("--chunk", type=int, default=16)
     p.add_argument("--drain-every", type=int, default=16,
-                   help="chunks buffered on device before one host readback")
+                   help="most chunks whose rows may be outside the host "
+                        "sinks; beyond, the oldest are booked at once")
     p.add_argument("--async-drains", action="store_true",
-                   help="readback + bookkeeping on a worker thread, so they "
-                        "no longer stall feeding")
+                   help="bookkeeping on a worker thread, from the chunks' "
+                        "pinned host copies, instead of between the next "
+                        "chunk's frames on the feeding thread")
     p.add_argument("--live-ingest", action="store_true",
                    help="render and stage per stream on producer threads "
                         "during the timed window (io.prefetch."

@@ -16,7 +16,11 @@ with tensors on the CPU, their plain versions.
 
 On the card a batched chunk replays one CUDA graph of the batched step
 per frame (``make_batched_chunk_runner``): ``chunk_graph_counts`` counts
-captures, replayed chunks and op-by-op chunks.
+captures, replayed chunks and op-by-op chunks.  ``MultiStreamPipeline``
+copies each chunk's outputs into pinned host buffers as the chunk ends and
+books them into the sinks in slices between the next chunk's frames, while
+the card steps them: ``drain_counts`` counts where stream-chunks were
+booked and the spills read.
 
 ``VideoPipeline`` is the reference's ``Run()`` (LK_Final.py:508-705) for
 one video: frames in, ``csv_rows`` (vps_<video>.csv) and the other sinks
@@ -179,12 +183,20 @@ CHUNK_GRAPHS = 4
 # ``frame_hook`` and every chunk off the card).
 chunk_graph_counts = {"captures": 0, "replays": 0, "eager": 0}
 
+# Stream-chunks booked into their sinks by ``MultiStreamPipeline``:
+# ``booked_between`` in slices between a later chunk's frames,
+# ``booked_at_drain`` by ``drain()``, at the ``drain_every`` bound or on the
+# async-drain worker; ``spill_reads``: stream-chunks read from their spill
+# on the device (rows over ``out_cap``), by any drain.
+drain_counts = {"booked_between": 0, "booked_at_drain": 0, "spill_reads": 0}
+
 _capture_lock = threading.Lock()     # one capture at a time in the process
 
 
 def reset_counters() -> None:
-    for k in chunk_graph_counts:
-        chunk_graph_counts[k] = 0
+    for counts in (chunk_graph_counts, drain_counts):
+        for k in counts:
+            counts[k] = 0
 
 
 def _leaves(tree) -> list:
@@ -262,10 +274,11 @@ class _FrameProgram:
             dst.copy_(src)
         return outs
 
-    def run(self, carry, frames: torch.Tensor):
+    def run(self, carry, frames: torch.Tensor, between=None):
         """Copy ``carry`` in, replay each frame of ``frames`` (B, T, H, W)
-        and clone its outputs out of the graph's memory; returns the
-        states after the last frame and the per-frame outputs, none of
+        and clone its outputs out of the graph's memory, then call
+        ``between()`` (host work while the card steps the frame); returns
+        the states after the last frame and the per-frame outputs, none of
         them sharing memory with a later replay."""
         for dst, src in zip(_leaves(self.carry), _leaves(carry)):
             dst.copy_(src)
@@ -274,6 +287,8 @@ class _FrameProgram:
             self.gray.copy_(frames[:, t])
             self.graph.replay()
             outs.append(_cloned(self.outs))
+            if between is not None:
+                between()
         chunk_graph_counts["replays"] += 1
         return _cloned(self.carry[0]), outs
 
@@ -283,12 +298,15 @@ def make_batched_chunk_runner(cfg: PipelineConfig,
                               frame_size: Tuple[int, int], device="cuda"):
     """(run_chunk_b, init_fn, masks) for one geometry on ``device``.
 
-    run_chunk_b(states, frames (B, T, H, W), frame_hook=None) -> (states,
-    outputs (B, T, ...) or their compaction with ``cfg.out_cap``): the
-    tracker fold is seeded from ``states.prev_gray`` and carried frame to
-    frame; ``frame_hook(t, states, outputs)``, when given, sees each frame's
-    new states and uncompacted outputs (B, ...) as the chunk steps (a
-    frame-by-frame replay of a chunk reads them).  On the card a chunk
+    run_chunk_b(states, frames (B, T, H, W), frame_hook=None, between=None)
+    -> (states, outputs (B, T, ...) or their compaction with
+    ``cfg.out_cap``): the tracker fold is seeded from ``states.prev_gray``
+    and carried frame to frame; ``frame_hook(t, states, outputs)``, when
+    given, sees each frame's new states and uncompacted outputs (B, ...) as
+    the chunk steps (a frame-by-frame replay of a chunk reads them);
+    ``between()``, when given, runs on the host after each frame is
+    queued, replayed or stepped, except while a capture is under way and
+    in the key's first chunk, which captures.  On the card a chunk
     with no ``frame_hook`` and no capture under way steps its frames
     through its key's CUDA graph of one batched step (the key: the states'
     and a frame batch's shapes and types, device and stream): the key's
@@ -310,13 +328,15 @@ def make_batched_chunk_runner(cfg: PipelineConfig,
             return (states, fold_tracking_levels(states.prev_gray, cfg.lk,
                                                  row_band=row_band))
 
-    def step_frames(carry, frames: torch.Tensor, frame_hook):
+    def step_frames(carry, frames: torch.Tensor, frame_hook, between):
         outs = []
         for t in range(frames.shape[1]):
             carry, o = step_batched(carry, frames[:, t])
             outs.append(o)
             if frame_hook is not None:
                 frame_hook(t, carry[0], o)
+            if between is not None:
+                between()
         return carry[0], outs
 
     def program(states: PipelineState, frames: torch.Tensor):
@@ -338,20 +358,22 @@ def make_batched_chunk_runner(cfg: PipelineConfig,
         return prog
 
     def run_chunk_b(states: PipelineState, frames: torch.Tensor,
-                    frame_hook=None):
+                    frame_hook=None, between=None):
         prog = None if frame_hook is not None else program(states, frames)
+        if frames.is_cuda and torch.cuda.is_current_stream_capturing():
+            between = None
         carry = fold(states)
         if prog is None:
             chunk_graph_counts["eager"] += 1
-            states, outs = step_frames(carry, frames, frame_hook)
+            states, outs = step_frames(carry, frames, frame_hook, between)
         else:
             with prog.lock, torch.cuda.device(frames.device):
                 if prog.graph is None:
                     chunk_graph_counts["eager"] += 1
-                    states, outs = step_frames(carry, frames, None)
+                    states, outs = step_frames(carry, frames, None, None)
                     prog.capture(step_batched, carry, frames[:, 0])
                 else:
-                    states, outs = prog.run(carry, frames)
+                    states, outs = prog.run(carry, frames, between)
         outs = _stack_frames(outs, dim=1)
         if cfg.out_cap > 0:
             with span("serve.compact"):
@@ -540,6 +562,7 @@ class VideoPipeline:
                         f"no spill; raise PipelineConfig.out_cap (or set 0 "
                         f"to disable)")
                 self.spilled_chunks += 1
+                drain_counts["spill_reads"] += 1
                 compact = False
                 outs = outs._replace(**_to_numpy(spill)._asdict())
         if compact:
@@ -602,6 +625,48 @@ class VideoPipeline:
         self.drain()
 
 
+def _layout(leaves) -> tuple:
+    return tuple((t.shape, t.dtype) for t in leaves)
+
+
+class _HostCopy:
+    """Pinned host buffers shaped as one chunk's output leaves, numpy views
+    of them, and the event recorded after the copy into them was queued."""
+
+    def __init__(self, leaves):
+        self.key = _layout(leaves)
+        self.tensors = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                        for t in leaves]
+        self.arrays = [t.numpy() for t in self.tensors]
+        self.event = torch.cuda.Event()
+
+
+class _Pending:
+    """A chunk whose rows are not all in its sinks yet: its outputs on the
+    device (held until its last slot is booked, the spill read only where a
+    slot overflows), their host arrays (``copy``'s views; off the card the
+    outputs' own), the per-slot n_valid or None, the sinks that owned its
+    slots when it ran, and the next slot to book."""
+
+    __slots__ = ("outs", "host", "copy", "nv", "pipes", "next")
+
+    def __init__(self, outs, host, copy, nv, pipes):
+        self.outs, self.host, self.copy = outs, host, copy
+        self.nv, self.pipes, self.next = nv, pipes, 0
+
+    def owed(self) -> int:
+        return len(self.pipes) - self.next
+
+    def landed(self, wait: bool) -> bool:
+        """Whether the host copy is complete; with ``wait``, wait for it."""
+        if self.copy is None:
+            return True
+        if wait:
+            self.copy.event.synchronize()
+            return True
+        return self.copy.event.query()
+
+
 class MultiStreamPipeline:
     """B same-geometry streams batched through one pipeline step on
     ``device`` (the card unless the caller names another device).
@@ -612,6 +677,14 @@ class MultiStreamPipeline:
     first feed consumes one frame per stream for the initial detection.
     Per-stream host bookkeeping goes to the B ``VideoPipeline`` sinks in
     ``pipes`` (all sharing one cached runner and mask set).
+
+    Each chunk's outputs are copied into pinned host buffers (a ring reused
+    chunk after chunk) as the chunk ends; between the next chunk's frames,
+    while the card steps them, the feeding thread books equal slices of
+    the slots earlier chunks still owe their sinks (span ``serve.book``).
+    ``drain_every`` bounds the chunks whose rows may be outside the sinks:
+    beyond it the oldest are booked at once, waiting for their copies.
+    ``drain()`` books all that is pending.
 
     ``mesh``: a ``DeviceMesh`` (``lk_tpu_torch.parallel``) whose
     ``mesh_axis`` shards the streams.  Each rank then owns the
@@ -651,8 +724,11 @@ class MultiStreamPipeline:
         self.states: Optional[PipelineState] = None
         # the last chunk's outputs on the device, as the drain will read them
         self.last_outputs = None
-        # pending entries: (chunk outputs, per-slot n_valid | None, sinks)
-        self._pending: List[tuple] = []
+        # chunks whose rows are not all in their sinks, oldest first
+        self._pending: List[_Pending] = []
+        # free pinned host copies by their leaves' shapes and types
+        self._ring: dict = {}
+        self._slices_left = 0           # between() calls left in the chunk
         self.drain_every = 16
         self._drain_worker = None
         self._drain_q = None
@@ -707,10 +783,12 @@ class MultiStreamPipeline:
         return np.where(self.active, t, 0).astype(np.int64)
 
     def start_async_drains(self) -> None:
-        """Move the readback and the bookkeeping of periodic drains to a
-        worker thread, so they no longer stall feeding.  ``drain()`` at the
-        end of the stream flushes the worker's queue and waits for it; a
-        worker's error is raised there (or at the next periodic drain)."""
+        """Move the bookkeeping of periodic drains to a worker thread, which
+        books each chunk from its pinned host copy once the copy is
+        complete; the feeding thread then books nothing between frames.
+        ``drain()`` at the end of the stream flushes the worker's queue and
+        waits for it; a worker's error is raised there (or at the next
+        periodic drain)."""
         import queue
         import threading
 
@@ -741,16 +819,47 @@ class MultiStreamPipeline:
             p.consumed_init_frame = True
 
     def _run_chunk(self, grays: torch.Tensor, n_valid) -> None:
+        nv = self._chunk_valid(grays.shape[1], n_valid)
+        between = None if self._drain_q is not None else self._book_slice
+        self._slices_left = grays.shape[1]
         with span("serve.chunk"):
-            self.states, outs = self._run(self.states, grays)
+            self.states, outs = self._run(self.states, grays, between=between)
+            pending = self._readback(outs, nv)
         self.last_outputs = outs
-        # the sinks ride along, so a later assign_stream cannot take this
-        # chunk's rows from the sink that owned the slot
-        self._pending.append((outs, self._chunk_valid(grays.shape[1],
-                                                      n_valid),
-                              list(self.pipes)))
-        if len(self._pending) >= self.drain_every:
-            self._drain_enqueue()
+        self._pending.append(pending)
+        if self._drain_q is not None:
+            if len(self._pending) >= self.drain_every:
+                pending, self._pending = self._pending, []
+                self._raise_drain_err()    # fail fast, do not fill the queue
+                self._drain_q.put(pending)
+            return
+        self._raise_drain_err()            # a slice's, now the chunk is kept
+        over = len(self._pending) - self.drain_every
+        if over > 0:
+            head, self._pending = self._pending[:over], self._pending[over:]
+            self._drain_now(head)
+
+    def _readback(self, outs, nv) -> _Pending:
+        """The pending entry of a chunk's outputs: on the card, a
+        non-blocking copy of every leaf but the spill into pinned host
+        buffers from the ring, queued behind the chunk, and its event.  The
+        sinks ride along, so a later assign_stream cannot take this chunk's
+        rows from the sink that owned the slot."""
+        read = outs._replace(spill=None) if hasattr(outs, "spill") else outs
+        leaves = _leaves(read)
+        copy = None
+        if leaves[0].is_cuda:
+            try:
+                copy = self._ring[_layout(leaves)].pop()
+            except (KeyError, IndexError):
+                copy = _HostCopy(leaves)
+            for dst, src in zip(copy.tensors, leaves):
+                dst.copy_(src, non_blocking=True)
+            copy.event.record()
+            host = _rebuild(read, iter(copy.arrays))
+        else:
+            host = _to_numpy(read)
+        return _Pending(outs, host, copy, nv, list(self.pipes))
 
     def feed(self, batch: np.ndarray, n_valid=None) -> None:
         """batch: (B, T, Hs, Ws, 3) u8 BGR frames, one row per stream,
@@ -806,7 +915,7 @@ class MultiStreamPipeline:
         self._run_chunk(g, n_valid)
 
     def drain(self) -> None:
-        """Fetch every pending chunk's outputs into the per-stream sinks;
+        """Book every pending chunk's outputs into the per-stream sinks;
         with async drains, hand them to the worker and wait for it."""
         pending, self._pending = self._pending, []
         if self._drain_q is not None:
@@ -821,27 +930,55 @@ class MultiStreamPipeline:
             err, self._drain_err = self._drain_err, None
             raise err
 
-    def _drain_enqueue(self) -> None:
-        pending, self._pending = self._pending, []
-        if self._drain_q is not None:
-            self._raise_drain_err()        # fail fast, do not fill the queue
-            self._drain_q.put(pending)
-        else:
-            self._drain_now(pending)
-
     def _drain_now(self, pending) -> None:
+        """Book every slot of ``pending``, waiting for each host copy."""
         with span("serve.drain"):
-            for outs, nv, pipes in pending:
-                spill = getattr(outs, "spill", None)
-                if spill is not None:       # read only where it overflows
-                    outs = outs._replace(spill=None)
-                host = _to_numpy(outs)
-                for b, p in enumerate(pipes):
-                    mine = _index(host, b)
-                    if spill is not None:
-                        mine = mine._replace(spill=_index(spill, b))
-                    p._drain(mine,
-                             n_valid=None if nv is None else int(nv[b]))
+            for p in pending:
+                p.landed(wait=True)
+                drain_counts["booked_at_drain"] += self._book(p, p.owed())
+
+    def _book_slice(self) -> None:
+        """The feeding thread's work between two frames of a chunk: an equal
+        share of the slots earlier chunks still owe their sinks, over the
+        frames left, from the oldest chunks whose host copies are complete;
+        it waits for none.  An error is kept and raised once the chunk has
+        run."""
+        left, self._slices_left = self._slices_left, self._slices_left - 1
+        owed = sum(p.owed() for p in self._pending)
+        if owed == 0 or self._drain_err is not None:
+            return
+        n = -(-owed // max(left, 1))
+        with span("serve.book"):
+            try:
+                while (n > 0 and self._pending
+                       and self._pending[0].landed(wait=False)):
+                    p = self._pending[0]
+                    k = self._book(p, n)
+                    drain_counts["booked_between"] += k
+                    n -= k
+                    if p.owed() == 0:
+                        self._pending.pop(0)
+            except Exception as e:  # kept for _run_chunk to raise
+                self._drain_err = e
+
+    def _book(self, p: _Pending, n: int) -> int:
+        """Book the next ``n`` slots of ``p`` (its host copy complete) into
+        their sinks; returns how many.  Once the last slot is booked, the
+        copy's buffers go back to the ring."""
+        spill = getattr(p.outs, "spill", None)
+        stop = min(p.next + n, len(p.pipes))
+        start = p.next
+        for b in range(start, stop):
+            mine = _index(p.host, b)
+            if spill is not None:           # read only where it overflows
+                mine = mine._replace(spill=_index(spill, b))
+            p.pipes[b]._drain(mine,
+                              n_valid=None if p.nv is None else int(p.nv[b]))
+            p.next = b + 1
+        if p.owed() == 0 and p.copy is not None:
+            self._ring.setdefault(p.copy.key, []).append(p.copy)
+            p.copy = None
+        return stop - start
 
     @property
     def frames_done(self) -> int:

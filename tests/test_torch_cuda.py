@@ -858,6 +858,84 @@ def test_serve_spill_on_card(cuda_device):
         assert a.vp_per_frame == b.vp_per_frame
 
 
+def _same_sinks(a, b) -> None:
+    """Every sink of two serving pipelines equal, bit for bit, in order."""
+    for p, q in zip(a.retired + a.pipes, b.retired + b.pipes):
+        assert p.frames_done == q.frames_done > 0
+        assert p.csv_rows == q.csv_rows and len(p.csv_rows) > 0
+        assert p.cross_points == q.cross_points
+        assert p.vp_per_frame == q.vp_per_frame
+        assert p.motion_rows == q.motion_rows
+        assert len(p.segments) == len(q.segments)
+        for x, y in zip(p.segments, q.segments):
+            assert np.array_equal(x["start"], y["start"])
+            assert np.array_equal(x["stop"], y["stop"])
+
+
+@pytest.mark.cuda
+def test_serve_books_between_replays_without_sync(cuda_device, monkeypatch):
+    """Serving on the card (4 streams, 860x483, chunk 8) after its key's
+    capture: three chunks replay their frame graph while the rows of the
+    chunks before them are booked between the replays from pinned copies,
+    with no synchronising call on the feeding thread (sync debug mode
+    "error"; a budget no chunk overflows, so no stream spills).  The sinks
+    equal bit for bit those of the same chunks run op by op
+    (CHUNK_GRAPHS 0) and booked at drain()."""
+    import dataclasses
+
+    from lk_tpu_torch.apps import serve
+    from lk_tpu_torch.models import PRESETS
+    from lk_tpu_torch.pipeline import runner
+
+    args = serve.build_parser().parse_args(["--streams", "4", "--frames",
+                                            "41", "--chunk", "8"])
+    # out_cap 190, the pair slots' count: a chunk's budget holds them all
+    cfg = dataclasses.replace(PRESETS["final"], out_cap=190)
+
+    def make():
+        return runner.MultiStreamPipeline(
+            cfg, src_size=(args.width, args.height), n_streams=4, chunk=8,
+            device=cuda_device)
+
+    warm = make()
+    staging = serve.stage(serve.scenes_of(args, cuda_device), 41,
+                          warm.height, warm.width)
+
+    def feed(ms, chunks):
+        for t in chunks:
+            ms.feed_staged(staging, t, 9 if t == 0 else 8)
+
+    feed(warm, (0, 9))                     # captures the key's graph
+    warm.drain()
+    ms = make()
+    feed(ms, (0, 9))                       # the ring's first copies
+    torch.cuda.synchronize()
+    owed = sum(p.owed() for p in ms._pending)
+    runner.reset_counters()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        feed(ms, (17, 25, 33))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counts = dict(runner.drain_counts)
+    assert runner.chunk_graph_counts == {"captures": 0, "replays": 3,
+                                         "eager": 0}
+    assert counts["booked_between"] > 0 and counts["booked_at_drain"] == 0
+    assert counts["booked_between"] + sum(
+        p.owed() for p in ms._pending) == owed + 3 * 4
+    ms.drain()
+    assert runner.drain_counts["spill_reads"] == 0
+    monkeypatch.setattr(runner, "CHUNK_GRAPHS", 0)
+    monkeypatch.setattr(runner.MultiStreamPipeline, "_book_slice",
+                        lambda self: None)
+    ref = make()
+    ref.drain_every = 1000
+    feed(ref, (0, 9, 17, 25, 33))
+    assert all(p.frames_done == 0 for p in ref.pipes)
+    ref.drain()
+    _same_sinks(ms, ref)
+
+
 @pytest.mark.cuda
 def test_fleet_chunk_graph_on_card(cuda_device):
     """The fleet cell cut to 4 streams of 320x180 on the card: its chunks

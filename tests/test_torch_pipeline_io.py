@@ -21,6 +21,7 @@ from lk_tpu_torch.config import PipelineConfig
 from lk_tpu_torch.io import sink
 from lk_tpu_torch.io.prefetch import ChunkPrefetcher, MultiStreamPrefetcher
 from lk_tpu_torch.models import FINAL, VP_DETECT
+from lk_tpu_torch.pipeline import runner
 from lk_tpu_torch.pipeline.runner import MultiStreamPipeline, VideoPipeline
 from lk_tpu_torch.utils.checkpoint import load_state, save_state
 import torch_parity  # noqa: F401  (one PyTorch thread per test worker)
@@ -309,6 +310,102 @@ def test_async_drain_error_surfaces(bgr):
     ms.pipes[0]._drain = broken
     with pytest.raises(RuntimeError, match="sink failed"):
         ms.drain()
+
+
+# Chunks of (first frame, frames, n_valid) over the F processed frames: the
+# first feed's init frame and 4 more, slot 1's stream ending 2 frames into
+# the third chunk and its slot recycled before the fourth, a short last one.
+SCHEDULE = ((0, 5, None), (5, 4, None), (9, 4, [4, 2]), (13, 4, None),
+            (17, 4, None), (21, 3, None))
+
+
+def _feed_schedule(ms, grays):
+    """Feed SCHEDULE chunk by chunk, with no drain."""
+    for k, (t, n, nv) in enumerate(SCHEDULE):
+        ms.feed_processed(grays[:, t:t + n], n_valid=nv)
+        if nv is not None:
+            ms.finish_stream(1)
+            ms.assign_stream(1, grays[1, t + n])
+    return ms
+
+
+@pytest.fixture(scope="module")
+def ingested(bgr):
+    ms = _multi()
+    return torch.stack([ms.pipes[b]._ingest(bgr[b]) for b in range(B)])
+
+
+@pytest.fixture(scope="module")
+def booked_at_drain(ingested):
+    """SCHEDULE with out_cap 48, every chunk booked by the final drain()."""
+    ms = MultiStreamPipeline(dataclasses.replace(CFG, out_cap=48),
+                             src_size=(W, H), n_streams=B, chunk=4,
+                             device="cpu")
+    ms.drain_every = 1000
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(MultiStreamPipeline, "_book_slice", lambda self: None)
+        _feed_schedule(ms, ingested)
+        assert all(p.frames_done == 0 for p in ms.pipes + ms.retired)
+        ms.drain()
+    return ms
+
+
+def _same_sinks(a, b):
+    """Every sink of two pipelines equal, element for element, in order."""
+    sa, sb = a.retired + a.pipes, b.retired + b.pipes
+    assert len(sa) == len(sb)
+    for p, q in zip(sa, sb):
+        assert p.frames_done == q.frames_done
+        assert p.csv_rows == q.csv_rows
+        assert p.cross_points == q.cross_points
+        assert p.vp_per_frame == q.vp_per_frame
+        assert p.motion_rows == q.motion_rows
+        assert len(p.segments) == len(q.segments)
+        for x, y in zip(p.segments, q.segments):
+            assert np.array_equal(x["start"], y["start"])
+            assert np.array_equal(x["stop"], y["stop"])
+
+
+@pytest.mark.parametrize("drain_every,out_cap,late",
+                         [(1, 48, False), (3, 48, False), (1000, 48, False),
+                          (1, 1, False), (1000, 48, True)])
+def test_booking_between_frames_equals_booking_at_drain(
+        ingested, booked_at_drain, drain_every, out_cap, late, monkeypatch):
+    """Each chunk's rows are booked in slices between the next chunk's
+    frames: after k chunks the first k - 1 are in the sinks and the last
+    is not, and after drain() the sinks equal those of the run booked only
+    at drain(), a finished stream and a recycled slot included.  With a
+    budget of one row a frame every slot overflows and is read from its
+    spill, exactly.  ``late``: no host copy has landed while the second
+    and third chunks step, so the fourth books three chunks, oldest
+    first."""
+    ms = MultiStreamPipeline(dataclasses.replace(CFG, out_cap=out_cap),
+                             src_size=(W, H), n_streams=B, chunk=4,
+                             device="cpu")
+    ms.drain_every = drain_every
+    runner.reset_counters()
+    if late:
+        landed = runner._Pending.landed
+        monkeypatch.setattr(
+            runner._Pending, "landed", lambda self, wait: landed(self, wait)
+            and (wait or runner.chunk_graph_counts["eager"] > 3))
+    _feed_schedule(ms, ingested)
+    k, last = len(SCHEDULE), SCHEDULE[-1][1]
+    assert runner.drain_counts["booked_between"] == (k - 1) * B
+    assert runner.drain_counts["booked_at_drain"] == 0
+    assert ms.frames_done == booked_at_drain.frames_done - last * B
+    for p, q in zip(ms.pipes, booked_at_drain.pipes):
+        assert len(p.vp_per_frame) == len(q.vp_per_frame) - last
+    ms.drain()
+    assert runner.drain_counts["booked_at_drain"] == B
+    assert not ms._pending
+    _same_sinks(ms, booked_at_drain)
+    spilled = runner.drain_counts["spill_reads"]
+    assert spilled == ms.spilled_chunks
+    if out_cap == 1:
+        assert spilled > booked_at_drain.spilled_chunks
+    else:
+        assert spilled == booked_at_drain.spilled_chunks
 
 
 def test_assign_stream_returns_video_pipeline(bgr):

@@ -144,7 +144,7 @@ def test_compaction_overflow_raises(staging, port_runs):
         assert p.csv_rows == q.csv_rows and len(p.csv_rows) > 10
         assert p.cross_points == q.cross_points
         assert p.vp_per_frame == q.vp_per_frame
-    outs, _, _ = pending[0]
+    outs = pending[0].outs
     sink = ms._sink()
     with pytest.raises(RuntimeError, match="compaction overflow"):
         for b in range(B):
