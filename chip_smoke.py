@@ -98,15 +98,17 @@ run_vp_app runs it.
  14. only with --profile: the serving pass's device and host time by
      stage, and the device's busy share;
  15. single-stream main path: one synthetic 1080p road scene with a
-     planted VP, 97 BGR frames (the init frame + 6 chunks of 16), run
-     through VideoPipeline.run(prefetch=2) with the counters reset just
-     before and read just after (the tracker's pyramid and the pair scan
-     once per tracked frame, 96; the finish and the window gather never;
-     no plain call);
+     planted VP, 97 BGR frames (7 chunks of 16 from the prefetcher, the
+     first frame seeding), run through VideoPipeline.run(prefetch=2) with
+     the counters reset just before and read just after (the tracker's
+     pyramid and the pair scan once per frame stepped from the host: the
+     first chunk's 15, op by op, and the capture of its frame graph,
+     derived from runner.video_graph_counts; the later chunks replay the
+     graph; the finish and the window gather never; no plain call);
      the late-trajectory VP error < 25 px;
  16. single-stream timing: ms per tracked frame of whole run calls (CUDA
      events, after phase 15's run), prefetch 0, prefetch 2 and the plain
-     pyramid, each run's csv rows, shown VPs and segments equal
+     pyramid (op by op), each run's csv rows, shown VPs and segments equal
      (np.array_equal) to phase 15's; then a run checkpointed after 3
      chunks and resumed in a fresh VideoPipeline, equal too;
  17. only with --profile: a single-stream run's device and host time by
@@ -116,10 +118,13 @@ run_vp_app runs it.
      with --synthetic (the package's 1280x720 stream, rendered on the
      card), 49 frames (the init frame + 3 chunks of 16), --out-dir a
      temporary directory, counted (one pyramid and one pair-scan launch
-     per tracked frame, 48, no other kernel, no plain call); a
+     per frame stepped from the host, derived as in phase 15: final
+     replays phase 15's frame graph and launches none, vp_detect and
+     classify capture their own; no other kernel, no plain call); a
      well-formed vps_synthetic.csv, the late-trajectory VP error < 25 px,
      classify's motion csv; rows, shown VPs and segments equal
-     (np.array_equal) to the same app run with the plain pyramid; ms per
+     (np.array_equal) to the same app run with the plain pyramid (op by
+     op); ms per
      tracked frame and frames/s of each counted run (host clock around
      main, synchronized);
  19. the tracker apps: ``masking.compute`` and ``roadlines.compute`` at
@@ -423,12 +428,39 @@ def serving_launches(chunks: int, per_chunk: int = S_CHUNK,
             "window_gather": 3 * stepped, "vp_scan": stepped}
 
 
+@contextlib.contextmanager
 def plain_tracker_pyramid():
-    """Context: the trackers' pyramid through its plain version."""
+    """Context: the trackers' pyramid through its plain version, every
+    chunk op by op (a frame graph replays the kernel it captured)."""
     from lk_tpu_torch.flow import sparse
     from lk_tpu_torch.ops import blur
+    from lk_tpu_torch.pipeline import runner
 
-    return patched(sparse, "build_pyramid", blur.build_pyramid_reference)
+    old = runner.CHUNK_GRAPHS
+    runner.CHUNK_GRAPHS = 0
+    try:
+        with patched(sparse, "build_pyramid", blur.build_pyramid_reference):
+            yield
+    finally:
+        runner.CHUNK_GRAPHS = old
+
+
+def single_stream_launches(chunks: int, first_tracked: int) -> int:
+    """The tracker pyramid's and the pair scan's launches that
+    kernel_counts() should read after a single-stream run of ``chunks``
+    chunks, from how they ran (runner.video_graph_counts since the last
+    reset_counters()).  A chunk run op by op launches each once per
+    tracked frame, and so does the capture of a key's frame graph once; a
+    replayed chunk launches none from the host.  Every chunk run op by op
+    is a key's first, the run's first chunk of ``first_tracked``
+    frames."""
+    from lk_tpu_torch.pipeline import runner
+
+    c = runner.video_graph_counts
+    check(c["eager"] + c["replays"] == chunks and c["eager"] <= 1,
+          f"single-stream chunks ran {c}, expected {chunks} in all, at "
+          f"most the first op by op")
+    return c["eager"] * first_tracked + c["captures"]
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1937,9 +1969,9 @@ def serving_timing(staging, card, passes=2):
 STAGES = ("serve.finish", "tracker.fold", "tracker.gather", "tracker.refine",
           "step.detect", "step.vp_scan", "serve.compact", "serve.book",
           "serve.drain")
-VIDEO_STAGES = ("video.ingest", "tracker.pyramid", "tracker.scharr",
-                "tracker.refine", "step.detect", "step.vp_scan",
-                "video.drain")
+VIDEO_STAGES = ("video.wait", "video.ingest", "video.chunk",
+                "tracker.pyramid", "tracker.scharr", "tracker.refine",
+                "step.detect", "step.vp_scan", "video.drain")
 
 
 def profile_stages(label, run, stages, frames, card):
@@ -2060,18 +2092,24 @@ def video_phases(frames, vp, card):
 
     import torch
 
+    from lk_tpu_torch.pipeline import runner
+
     tracked = V_FRAMES - 1
     reset_counters()
     run, wall = timed_call(video_run, frames, prefetch=2)
     launches, plain = kernel_counts()
+    graphs = dict(runner.video_graph_counts)
+    # prefetch 2: chunks of V_CHUNK frames, the first one's seeding
+    stepped = single_stream_launches(-(-V_FRAMES // V_CHUNK), V_CHUNK - 1)
     print(f"[video] VideoPipeline final {SRC[0]}x{SRC[1]} -> {SW}x{SH}, "
-          f"chunk {V_CHUNK}, prefetch 2, {V_FRAMES} frames: launches "
-          f"{launches} ({launches['pyr_down'] / tracked:.2f} pyramid "
-          f"launches per tracked frame), plain calls {plain}, first run "
-          f"{wall:.2f} s (incl. warm-up)  [{card}]")
+          f"chunk {V_CHUNK}, prefetch 2, {V_FRAMES} frames: chunks {graphs}, "
+          f"launches {launches} (one pyramid and pair scan per frame "
+          f"stepped from the host: {stepped} of {tracked} tracked), plain "
+          f"calls {plain}, first run {wall:.2f} s (incl. warm-up and the "
+          f"capture)  [{card}]")
     check(plain == 0, f"plain versions ran {plain}x on the card")
-    check(launches["pyr_down"] == launches["vp_scan"] == tracked,
-          f"pyramid or pair-scan launches {launches}, expected {tracked}")
+    check(launches["pyr_down"] == launches["vp_scan"] == stepped,
+          f"pyramid or pair-scan launches {launches}, expected {stepped}")
     check(launches["finish"] == launches["window_gather"] == 0,
           f"finish or gather launched: {launches}")
     check(run.frames_done == tracked and run.consumed_init_frame,
@@ -2130,6 +2168,8 @@ def vp_app_phase(card):
     import importlib
     import tempfile
 
+    from lk_tpu_torch.pipeline import runner
+
     t_phase = time.perf_counter()
     tracked = A_FRAMES - 1
     vp = np.array([A_SRC[0] * 0.5, A_SRC[1] * 0.45]) * (SW / A_SRC[0])
@@ -2143,15 +2183,18 @@ def vp_app_phase(card):
             reset_counters()
             pipe, dt = timed_call(module.main, argv)
             counts, plain = kernel_counts()
+            graphs = dict(runner.video_graph_counts)
+            stepped = single_stream_launches(-(-A_FRAMES // V_CHUNK),
+                                             V_CHUNK - 1)
             with open(os.path.join(tmp, "vps_synthetic.csv")) as f:
                 rows = list(csv.reader(f))
             if app == "classify":
                 with open(os.path.join(tmp, "motion.csv")) as f:
                     motion = list(csv.reader(f))
         check(plain == 0, f"{app}: plain versions ran {plain}x")
-        check(counts == {"pyr_down": tracked, "finish": 0,
-                         "window_gather": 0, "vp_scan": tracked},
-              f"{app}: launches {counts}, expected {tracked} pyramids "
+        check(counts == {"pyr_down": stepped, "finish": 0,
+                         "window_gather": 0, "vp_scan": stepped},
+              f"{app}: launches {counts}, expected {stepped} pyramids "
               f"and pair scans")
         check(pipe.frames_done == tracked, f"{app}: {pipe.frames_done} "
               f"frames done")
@@ -2176,8 +2219,10 @@ def vp_app_phase(card):
               f"differ with the plain pyramid")
         launches[app] = counts["pyr_down"]
         print(f"[apps] {app} --synthetic {A_SRC[0]}x{A_SRC[1]} -> "
-              f"{pipe.width}x{pipe.height}, {A_FRAMES} frames: launches "
-              f"{counts}, plain calls {plain}; {len(got)} csv rows (file "
+              f"{pipe.width}x{pipe.height}, {A_FRAMES} frames: chunks "
+              f"{graphs}, launches {counts} (from the host: {stepped} "
+              f"frames of {tracked} stepped), plain calls {plain}; "
+              f"{len(got)} csv rows (file "
               f"well formed), {len(pipe.segments)} segments, late-trajectory "
               f"VP error {err:.2f} px (limit {VP_ERR_LIMIT})"
               + (f", {len(motion) - 1} motion rows" if app == "classify"

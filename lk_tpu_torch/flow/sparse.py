@@ -47,12 +47,12 @@ Functions run where their tensors are.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from lk_tpu_torch.config import LKConfig
-from lk_tpu_torch.ops.blur import build_pyramid, reflect101_index
+from lk_tpu_torch.ops.blur import (_device_cache, build_pyramid,
+                                   reflect101_index)
 from lk_tpu_torch.ops.gradients import scharr_derivatives
 from lk_tpu_torch.utils.profiling import span
 
@@ -221,7 +221,7 @@ def fold_tracking_levels(imgs: torch.Tensor, cfg: LKConfig = LKConfig(),
 # the per-point tracker (single stream)
 # ---------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=64)
+@_device_cache
 def reflect_index(n: int, before: int, after: int,
                   device: torch.device) -> torch.Tensor:
     """Source indices of an axis of length n padded by ``before``/``after``
@@ -248,21 +248,27 @@ def build_tracking_pyramid(img: torch.Tensor, max_level: int, pad: int):
     return out
 
 
-@functools.lru_cache(maxsize=64)
+@_device_cache
 def _window_geometry(win_w: int, win_h: int, pad: int, hp: int, wp: int,
                      device: torch.device):
     """Constants of the window sampling on one (hp, wp) padded level, as
     (x, y) pairs: the window's half size, the bounds of OpenCV's 'inside'
     test (the integer corner within [-win, size) of the unpadded level),
     the corner's upper clamp; and the (win_h+1, win_w+1) patch's offsets
-    into the flattened level."""
+    into the flattened level.  Filled on the device, with no host copy, so
+    that a CUDA graph capture can build its own."""
+
+    def pair(x, y, dtype):
+        out = torch.empty(2, dtype=dtype, device=device)
+        out[0].fill_(x)
+        out[1].fill_(y)
+        return out
+
     f32, i64 = torch.float32, torch.int64
-    half = torch.tensor([(win_w - 1) * 0.5, (win_h - 1) * 0.5], dtype=f32,
-                        device=device)
-    lo = torch.tensor([-win_w, -win_h], dtype=f32, device=device)
-    hi = torch.tensor([wp - 2 * pad, hp - 2 * pad], dtype=f32, device=device)
-    cmax = torch.tensor([wp - win_w - 1, hp - win_h - 1], dtype=i64,
-                        device=device)
+    half = pair((win_w - 1) * 0.5, (win_h - 1) * 0.5, f32)
+    lo = pair(-win_w, -win_h, f32)
+    hi = pair(wp - 2 * pad, hp - 2 * pad, f32)
+    cmax = pair(wp - win_w - 1, hp - win_h - 1, i64)
     offs = (torch.arange(win_h + 1, device=device)[:, None] * wp
             + torch.arange(win_w + 1, device=device))
     return half, lo, hi, cmax, offs

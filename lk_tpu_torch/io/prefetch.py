@@ -5,10 +5,11 @@ The reference decodes synchronously inside its frame loop (``cap.read()``
 at LK_Final.py:509-517).  Here a producer thread drains the source
 iterator (any codec ``cv2.VideoCapture`` opens, or a synthetic generator),
 groups frames into fixed-size chunks, applies the transform
-(``VideoPipeline._ingest``: the upload and the preprocess, enqueued on the
-current stream of the frames' device, the one the consumer runs on, so
-ordering needs no event) and parks finished chunks in a bounded queue.
-The consumer blocks only when the producer cannot keep up.
+(``VideoPipeline._ingest``: the upload and the preprocess; on the card
+``VideoPipeline._ingest_on`` queues them on a stream of the producer's own
+and returns an event the consumer's stream waits for) and parks finished
+chunks in a bounded queue.  The consumer blocks only when the producer
+cannot keep up.
 """
 
 from __future__ import annotations

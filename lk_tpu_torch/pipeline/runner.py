@@ -14,17 +14,19 @@ tracker's pyramid, the finish and the batched tracker's gather are the
 CUDA kernels of ``ops/blur.py``, ``ops/finish.py`` and ``flow/sparse.py``;
 with tensors on the CPU, their plain versions.
 
-On the card a batched chunk replays one CUDA graph of the batched step
-per frame (``make_batched_chunk_runner``): ``chunk_graph_counts`` counts
-captures, replayed chunks and op-by-op chunks.  ``MultiStreamPipeline``
-copies each chunk's outputs into pinned host buffers as the chunk ends and
-books them into the sinks in slices between the next chunk's frames, while
-the card steps them: ``drain_counts`` counts where stream-chunks were
-booked and the spills read.
+On the card a chunk replays one CUDA graph of its step per frame
+(``_FramePrograms``): ``chunk_graph_counts`` counts the batched runner's
+captures, replayed chunks and op-by-op chunks, ``video_graph_counts`` the
+single-stream runner's.  ``MultiStreamPipeline`` copies each chunk's
+outputs into pinned host buffers as the chunk ends and books them into the
+sinks in slices between the next chunk's frames, while the card steps
+them: ``drain_counts`` counts where stream-chunks were booked and the
+spills read.
 
 ``VideoPipeline`` is the reference's ``Run()`` (LK_Final.py:508-705) for
 one video: frames in, ``csv_rows`` (vps_<video>.csv) and the other sinks
-out, with checkpoints and a prefetching producer thread.
+out, with checkpoints and a prefetching producer thread, which on the card
+uploads and preprocesses on a stream of its own.
 ``MultiStreamPipeline`` batches B same-geometry streams through one step
 and drains each stream's outputs into its own ``VideoPipeline``; with a
 ``mesh`` (``torch.distributed``, one process per device) each rank holds
@@ -129,20 +131,31 @@ def make_chunk_runner(cfg: PipelineConfig, frame_size: Tuple[int, int],
     ``device``; cached, so N same-shape streams share one runner and one
     mask set.
 
-    run_chunk(state, frames (T, H, W)) -> (state, outputs stacked on T, or
-    their compaction with ``cfg.out_cap``).  init_fn(first_gray (H, W)) ->
-    the state with the first-frame detection applied (reference
-    LK_Final.py:481-492 detects on the first frame before looping)."""
+    run_chunk(state, frames (T, H, W), frame_hook=None) -> (state, outputs
+    stacked on T, or their compaction with ``cfg.out_cap``):
+    ``frame_hook(t, state, outputs)``, when given, sees each frame's new
+    state and outputs as the chunk steps them, op by op.  On the card a
+    chunk with no ``frame_hook`` replays one CUDA graph of ``step`` per
+    frame, as ``make_batched_chunk_runner``'s chunks do (the key: the
+    state's and a frame's shapes and types, device and stream), so the
+    next video of the geometry replays the graph its first chunk captured.
+    init_fn(first_gray (H, W)) -> the state with the first-frame detection
+    applied (reference LK_Final.py:481-492 detects on the first frame
+    before looping)."""
     width, height = frame_size
     roi_mask, sub_masks = build_roi_masks(width, height, cfg.roi)
     step, detect, _ = make_step(cfg, frame_size, roi_mask, sub_masks,
                                 device=device)
 
-    def run_chunk(state: PipelineState, frames: torch.Tensor):
-        outs = []
-        for t in range(frames.shape[0]):
-            state, o = step(state, frames[t])
-            outs.append(o)
+    def step_carry(carry, gray: torch.Tensor):
+        state, o = step(carry[0], gray)
+        return (state,), o
+
+    programs = _FramePrograms(step_carry, 0, video_graph_counts)
+
+    def run_chunk(state: PipelineState, frames: torch.Tensor,
+                  frame_hook=None):
+        state, outs = programs.run((state,), frames, frame_hook)
         outs = _stack_frames(outs, dim=0)
         if cfg.out_cap > 0:
             outs = _compact_chunk_outputs(outs, cfg.out_cap)
@@ -183,6 +196,10 @@ CHUNK_GRAPHS = 4
 # ``frame_hook`` and every chunk off the card).
 chunk_graph_counts = {"captures": 0, "replays": 0, "eager": 0}
 
+# Single-stream chunks (``make_chunk_runner``) by how they ran, counted as
+# ``chunk_graph_counts`` counts the batched ones.
+video_graph_counts = {"captures": 0, "replays": 0, "eager": 0}
+
 # Stream-chunks booked into their sinks by ``MultiStreamPipeline``:
 # ``booked_between`` in slices between a later chunk's frames,
 # ``booked_at_drain`` by ``drain()``, at the ``drain_every`` bound or on the
@@ -194,7 +211,7 @@ _capture_lock = threading.Lock()     # one capture at a time in the process
 
 
 def reset_counters() -> None:
-    for counts in (chunk_graph_counts, drain_counts):
+    for counts in (chunk_graph_counts, video_graph_counts, drain_counts):
         for k in counts:
             counts[k] = 0
 
@@ -227,16 +244,21 @@ def _cloned(tree):
 
 
 class _FrameProgram:
-    """One key's frame graph: a batched step from a static carry (states,
-    tracker fold) and frame batch, which writes its new carry back into the
-    static one and its outputs into its own memory."""
+    """One key's frame graph: a step from a static carry (a tuple whose
+    first item is the states: the batched runner's states and tracker fold,
+    the single-stream runner's state alone) and frame, which writes its new
+    carry back into the static one and its outputs into its own memory.
+    ``frame_axis``: the frames' axis in a chunk; ``counts``: the runner's
+    counters."""
 
-    def __init__(self):
+    def __init__(self, counts: dict, frame_axis: int):
         self.lock = threading.Lock()     # copy-in to clone-out
+        self.counts = counts
+        self.frame_axis = frame_axis
         self.graph = None
         self.carry = self.gray = self.outs = None
 
-    def capture(self, step_batched, carry, gray) -> None:
+    def capture(self, step, carry, gray) -> None:
         """Capture the step on a side stream from static tensors shaped as
         ``carry`` and ``gray`` (their contents are not read).  As for the
         dense pair graph, ``torch.cuda.graph``'s synchronize, garbage
@@ -250,19 +272,19 @@ class _FrameProgram:
         with _capture_lock, torch.cuda.stream(torch.cuda.Stream()):
             graph.capture_begin(capture_error_mode="thread_local")
             try:
-                outs = self.step_in_place(step_batched)
+                outs = self.step_in_place(step)
             finally:
                 graph.capture_end()
         self.graph, self.outs = graph, outs
-        chunk_graph_counts["captures"] += 1
+        self.counts["captures"] += 1
 
-    def step_in_place(self, step_batched):
+    def step_in_place(self, step):
         """The captured work: one step of the static carry and frame
         batch, its new carry written back into the static carry; returns
         the frame's outputs.  A new tensor that shares memory with the
         static carry (passed through, or a view) is copied first, so the
         write-back cannot change an output or a later source."""
-        carry, outs = step_batched(self.carry, self.gray)
+        carry, outs = step(self.carry, self.gray)
         held = {t.untyped_storage().data_ptr() for t in _leaves(self.carry)}
 
         def apart(t):
@@ -275,22 +297,89 @@ class _FrameProgram:
         return outs
 
     def run(self, carry, frames: torch.Tensor, between=None):
-        """Copy ``carry`` in, replay each frame of ``frames`` (B, T, H, W)
-        and clone its outputs out of the graph's memory, then call
-        ``between()`` (host work while the card steps the frame); returns
-        the states after the last frame and the per-frame outputs, none of
-        them sharing memory with a later replay."""
+        """Copy ``carry`` in, replay each frame of ``frames`` and clone its
+        outputs out of the graph's memory, then call ``between()`` (host
+        work while the card steps the frame); returns the states after the
+        last frame and the per-frame outputs, none of them sharing memory
+        with a later replay."""
         for dst, src in zip(_leaves(self.carry), _leaves(carry)):
             dst.copy_(src)
         outs = []
-        for t in range(frames.shape[1]):
-            self.gray.copy_(frames[:, t])
+        for t in range(frames.shape[self.frame_axis]):
+            self.gray.copy_(frames.select(self.frame_axis, t))
             self.graph.replay()
             outs.append(_cloned(self.outs))
             if between is not None:
                 between()
-        chunk_graph_counts["replays"] += 1
+        self.counts["replays"] += 1
         return _cloned(self.carry[0]), outs
+
+
+class _FramePrograms:
+    """A runner's chunks: ``step(carry, frame) -> (carry, outputs)`` over
+    the frames of a chunk (axis ``frame_axis``), op by op or, on the card,
+    through the ``_FrameProgram`` of the chunk's key, the least recently
+    used of more than ``CHUNK_GRAPHS`` keys dropped; ``counts`` counts the
+    chunks by how they ran."""
+
+    def __init__(self, step, frame_axis: int, counts: dict):
+        self.step = step
+        self.frame_axis = frame_axis
+        self.counts = counts
+        self.graphs: collections.OrderedDict = collections.OrderedDict()
+        self.lock = threading.Lock()
+
+    def _step_frames(self, carry, frames: torch.Tensor, frame_hook, between):
+        outs = []
+        for t in range(frames.shape[self.frame_axis]):
+            carry, o = self.step(carry, frames.select(self.frame_axis, t))
+            outs.append(o)
+            if frame_hook is not None:
+                frame_hook(t, carry[0], o)
+            if between is not None:
+                between()
+        return carry[0], outs
+
+    def _program(self, states, frames: torch.Tensor):
+        """The key's frame program, None off the graph path."""
+        if (not frames.is_cuda or CHUNK_GRAPHS <= 0
+                or torch.cuda.is_current_stream_capturing()):
+            return None
+        frame = frames.select(self.frame_axis, 0)
+        key = (tuple((t.shape, t.dtype) for t in _leaves(states)),
+               frame.shape, frames.dtype, frames.device.index,
+               torch.cuda.current_stream().cuda_stream)
+        with self.lock:
+            prog = self.graphs.get(key)
+            if prog is None:
+                prog = self.graphs[key] = _FrameProgram(self.counts,
+                                                        self.frame_axis)
+                while len(self.graphs) > CHUNK_GRAPHS:
+                    self.graphs.popitem(last=False)
+            else:
+                self.graphs.move_to_end(key)
+        return prog
+
+    def run(self, carry, frames: torch.Tensor, frame_hook=None,
+            between=None):
+        """(states after the chunk, per-frame outputs).  The key's first
+        chunk runs op by op, so every kernel and cache is built outside a
+        capture, and then captures; later chunks replay."""
+        prog = (None if frame_hook is not None
+                else self._program(carry[0], frames))
+        if frames.is_cuda and torch.cuda.is_current_stream_capturing():
+            between = None
+        if prog is None:
+            self.counts["eager"] += 1
+            return self._step_frames(carry, frames, frame_hook, between)
+        with prog.lock, torch.cuda.device(frames.device):
+            if prog.graph is None:
+                self.counts["eager"] += 1
+                out = self._step_frames(carry, frames, None, None)
+                prog.capture(self.step, carry,
+                             frames.select(self.frame_axis, 0))
+                return out
+            return prog.run(carry, frames, between)
 
 
 @functools.lru_cache(maxsize=16)
@@ -308,72 +397,28 @@ def make_batched_chunk_runner(cfg: PipelineConfig,
     queued, replayed or stepped, except while a capture is under way and
     in the key's first chunk, which captures.  On the card a chunk
     with no ``frame_hook`` and no capture under way steps its frames
-    through its key's CUDA graph of one batched step (the key: the states'
-    and a frame batch's shapes and types, device and stream): the key's
-    first chunk runs op by op, so every kernel and cache is built outside
-    a capture, and then captures; later chunks copy the carry in, replay
-    once a frame and clone the outputs out.  The step reads nothing back
-    to the host, so the graph replays the op-by-op step's work.
+    through its key's CUDA graph of one batched step (``_FramePrograms``;
+    the key: the states' and a frame batch's shapes and types, device and
+    stream): later chunks copy the carry in, replay once a frame and clone
+    the outputs out.  The step reads nothing back to the host, so the
+    graph replays the op-by-op step's work.
     init_fn(first_gray (B, H, W)) -> states with the first detection."""
     width, height = frame_size
     roi_mask, sub_masks = build_roi_masks(width, height, cfg.roi)
     _, detect, step_batched = make_step(cfg, frame_size, roi_mask, sub_masks,
                                         device=device)
     row_band = tracker_row_band(cfg, height, sub_masks)
-    graphs: collections.OrderedDict = collections.OrderedDict()
-    graphs_lock = threading.Lock()
+    programs = _FramePrograms(step_batched, 1, chunk_graph_counts)
 
     def fold(states: PipelineState):
         with span("tracker.fold"):
             return (states, fold_tracking_levels(states.prev_gray, cfg.lk,
                                                  row_band=row_band))
 
-    def step_frames(carry, frames: torch.Tensor, frame_hook, between):
-        outs = []
-        for t in range(frames.shape[1]):
-            carry, o = step_batched(carry, frames[:, t])
-            outs.append(o)
-            if frame_hook is not None:
-                frame_hook(t, carry[0], o)
-            if between is not None:
-                between()
-        return carry[0], outs
-
-    def program(states: PipelineState, frames: torch.Tensor):
-        """The key's frame program, None off the graph path."""
-        if (not frames.is_cuda or CHUNK_GRAPHS <= 0
-                or torch.cuda.is_current_stream_capturing()):
-            return None
-        key = (tuple((t.shape, t.dtype) for t in _leaves(states)),
-               frames.shape[:1] + frames.shape[2:], frames.dtype,
-               frames.device.index, torch.cuda.current_stream().cuda_stream)
-        with graphs_lock:
-            prog = graphs.get(key)
-            if prog is None:
-                prog = graphs[key] = _FrameProgram()
-                while len(graphs) > CHUNK_GRAPHS:
-                    graphs.popitem(last=False)
-            else:
-                graphs.move_to_end(key)
-        return prog
-
     def run_chunk_b(states: PipelineState, frames: torch.Tensor,
                     frame_hook=None, between=None):
-        prog = None if frame_hook is not None else program(states, frames)
-        if frames.is_cuda and torch.cuda.is_current_stream_capturing():
-            between = None
-        carry = fold(states)
-        if prog is None:
-            chunk_graph_counts["eager"] += 1
-            states, outs = step_frames(carry, frames, frame_hook, between)
-        else:
-            with prog.lock, torch.cuda.device(frames.device):
-                if prog.graph is None:
-                    chunk_graph_counts["eager"] += 1
-                    states, outs = step_frames(carry, frames, None, None)
-                    prog.capture(step_batched, carry, frames[:, 0])
-                else:
-                    states, outs = prog.run(carry, frames, between)
+        states, outs = programs.run(fold(states), frames, frame_hook,
+                                    between)
         outs = _stack_frames(outs, dim=1)
         if cfg.out_cap > 0:
             with span("serve.compact"):
@@ -493,6 +538,30 @@ class VideoPipeline:
                 return self._finish(torch.from_numpy(grays).to(self.device))
             return self._pre(frames_u8)
 
+    def _ingest_on(self, stream):
+        """``_ingest`` for the producer thread on the card: the upload and
+        the preprocess queued on ``stream``, which does not synchronise
+        with other streams implicitly, then an event the feeding thread's
+        stream waits for (``_arrived``)."""
+
+        def ingest(frames_u8: np.ndarray):
+            with torch.cuda.stream(stream):
+                grays = self._ingest(frames_u8)
+                done = torch.cuda.Event()
+                done.record(stream)
+            return grays, done
+
+        return ingest
+
+    def _arrived(self, grays: torch.Tensor, done) -> torch.Tensor:
+        """A chunk ingested on the producer's stream, ordered before the
+        feeding thread's work on its current stream; its memory is not
+        reused before that work is done."""
+        current = torch.cuda.current_stream(self.device)
+        current.wait_event(done)
+        grays.record_stream(current)
+        return grays
+
     def feed(self, frames_u8: np.ndarray) -> Optional[FrameOutputs]:
         """Process (T, Hs, Ws, 3) u8 BGR frames; returns the chunk's
         outputs (on the device)."""
@@ -518,7 +587,8 @@ class VideoPipeline:
                 grays = grays[1:]
                 if grays.shape[0] == 0:
                     return None
-        self.state, outs = self._run(self.state, grays)
+        with span("video.chunk"):
+            self.state, outs = self._run(self.state, grays)
         self._pending_outs.append(outs)
         if len(self._pending_outs) >= self.drain_every:
             self.drain()
@@ -600,16 +670,28 @@ class VideoPipeline:
         ``prefetch > 0`` decodes and ingests ``prefetch`` chunks ahead on a
         producer thread (``io.prefetch.ChunkPrefetcher``), overlapping host
         decode with the device: the replacement for the reference's
-        synchronous ``cap.read()`` loop (LK_Final.py:509-517)."""
+        synchronous ``cap.read()`` loop (LK_Final.py:509-517).  On the card
+        the producer uploads and preprocesses on a stream of its own
+        (``_ingest_on``), so its work never joins a frame graph that the
+        feeding thread captures meanwhile; span ``video.wait`` is the
+        feeding thread's wait for the next chunk."""
         if prefetch > 0:
             from lk_tpu_torch.io.prefetch import ChunkPrefetcher
 
+            cuda = self.device.type == "cuda"
+            ingest = (self._ingest_on(torch.cuda.Stream(self.device)) if cuda
+                      else self._ingest)
             pf = ChunkPrefetcher(frames, self.chunk, depth=prefetch,
-                                 transform=self._ingest)
+                                 transform=ingest)
             self.last_prefetcher = pf
+            chunks = iter(pf)
             try:
-                for grays in pf:
-                    self.feed_gray(grays)
+                while True:
+                    with span("video.wait"):
+                        item = next(chunks, None)
+                    if item is None:
+                        break
+                    self.feed_gray(self._arrived(*item) if cuda else item)
             finally:
                 pf.close()
             self.drain()

@@ -288,13 +288,17 @@ def test_track_points_kernel_pyramid_equals_plain(cuda_device, hw):
 
 
 @pytest.mark.cuda
-def test_video_pipeline_kernel_equals_plain(cuda_device):
-    """A short single-stream VideoPipeline run on the card: one pyramid
-    launch per tracked frame, no plain call, and the same rows as the run
-    with the plain pyramid."""
+def test_video_pipeline_kernel_equals_plain(cuda_device, monkeypatch):
+    """A short single-stream VideoPipeline run on the card (three chunks of
+    4 tracked frames): one pyramid launch per frame stepped from the host,
+    that is every frame of a chunk run op by op and the capture of its
+    key's frame graph (a replayed chunk launches none), no plain call, and
+    the same rows as the run with the plain pyramid, op by op
+    (CHUNK_GRAPHS 0: a graph replays the kernel it captured)."""
     import dataclasses
 
     from lk_tpu_torch.models import PRESETS
+    from lk_tpu_torch.pipeline import runner
     from lk_tpu_torch.pipeline.runner import VideoPipeline
     from scipy.ndimage import gaussian_filter
 
@@ -309,21 +313,129 @@ def test_video_pipeline_kernel_equals_plain(cuda_device):
         p.run(iter(bgr))
         return p
 
-    blur.reset_counters()
-    finish.reset_counters()
-    sparse.reset_counters()
+    _reset_all()
     kern = run()
-    assert (blur.kernel_launches, blur.plain_calls) == (12, 0)
+    counts = runner.video_graph_counts
+    assert counts["eager"] + counts["replays"] == 3
+    stepped = 4 * counts["eager"] + counts["captures"]
+    assert (blur.kernel_launches, blur.plain_calls) == (stepped, 0)
     assert finish.kernel_launches == sparse.kernel_launches == 0
-    real = sparse.build_pyramid
-    sparse.build_pyramid = blur.build_pyramid_reference
-    try:
-        plain = run()
-    finally:
-        sparse.build_pyramid = real
+    monkeypatch.setattr(sparse, "build_pyramid", blur.build_pyramid_reference)
+    monkeypatch.setattr(runner, "CHUNK_GRAPHS", 0)
+    plain = run()
+    assert blur.plain_calls == 12
     assert kern.frames_done == 12
     assert kern.csv_rows == plain.csv_rows
     assert kern.vp_per_frame == plain.vp_per_frame
+
+
+def _same_videos(a, b) -> None:
+    """Two single-stream runs' sinks and end states equal, bit for bit."""
+    from lk_tpu_torch.pipeline import runner
+
+    assert a.frames_done == b.frames_done > 0
+    assert a.csv_rows == b.csv_rows and len(a.csv_rows) > 0
+    assert a.cross_points == b.cross_points
+    assert a.vp_per_frame == b.vp_per_frame
+    assert a.motion_rows == b.motion_rows
+    assert len(a.segments) == len(b.segments)
+    for x, y in zip(a.segments, b.segments):
+        assert np.array_equal(x["start"], y["start"])
+        assert np.array_equal(x["stop"], y["stop"])
+    for x, y in zip(runner._leaves(a.state), runner._leaves(b.state)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefetch", [0, 2])
+def test_video_frame_graph_equals_op_by_op(cuda_device, prefetch,
+                                           monkeypatch):
+    """Two clips of the single-stream cell cut small (24 frames of 640x360
+    BGR processed at 320x180, chunk 8) through fresh VideoPipelines on the
+    card: the first clip's first chunk runs op by op and captures the key's
+    frame graph, every later chunk replays it, the second clip's too (no
+    recapture); a chunk with a frame_hook runs op by op.  Every chunk's
+    outputs, the sinks and the end states equal bit for bit those of the
+    same clips run op by op (CHUNK_GRAPHS 0, which captures nothing).  At
+    prefetch 2 the producer thread uploads and preprocesses a chunk while
+    the capture is open on the feeding thread."""
+    import threading
+
+    from gpubench.drivers.vp_fleet import program_config
+    from gpubench.drivers.vp_solo import bgr_clip
+    from gpubench.tests._tiny_solo import tiny_solo_spec
+    from lk_tpu_torch.pipeline import runner
+
+    spec = tiny_solo_spec()
+    c, t = spec.config, spec.traffic
+    cfg = program_config(c)
+    clips = [bgr_clip(t, c["src_height"], c["src_width"], seed, cuda_device)
+             for seed in (1, 2)]
+
+    def run(clip):
+        p = runner.VideoPipeline(cfg, (c["src_width"], c["src_height"]),
+                                 chunk=c["chunk"], device=cuda_device)
+        p.drain_every = c["drain_every"]
+        p.outs = []
+        feed = p.feed_gray
+
+        def keep(grays):
+            p.outs.append(feed(grays))
+            return p.outs[-1]
+
+        p.feed_gray = keep
+        p.run(iter(clip), prefetch=prefetch)
+        return p
+
+    capturing, ingested = threading.Event(), threading.Event()
+    if prefetch:
+        # the capture waits, open, for the producer's ingest of the second
+        # chunk, which waits for the capture to be open
+        real_ingest = runner.VideoPipeline._ingest
+        real_step = runner._FrameProgram.step_in_place
+        calls = []
+
+        def ingest(self, frames_u8):
+            calls.append(frames_u8.shape[0])
+            if len(calls) != 2:
+                return real_ingest(self, frames_u8)
+            assert capturing.wait(timeout=30)
+            out = real_ingest(self, frames_u8)
+            ingested.set()
+            return out
+
+        def step_in_place(self, step):
+            capturing.set()
+            assert ingested.wait(timeout=30)
+            return real_step(self, step)
+
+        monkeypatch.setattr(runner.VideoPipeline, "_ingest", ingest)
+        monkeypatch.setattr(runner._FrameProgram, "step_in_place",
+                            step_in_place)
+    runner.make_chunk_runner.cache_clear()
+    runner.reset_counters()
+    graphed = [run(clip) for clip in clips]
+    torch.cuda.synchronize()
+    assert runner.video_graph_counts == {"captures": 1, "replays": 5,
+                                         "eager": 1}
+    assert ingested.is_set() == bool(prefetch)
+    monkeypatch.undo()
+    run_chunk = runner.make_chunk_runner(cfg, (c["width"], c["height"]),
+                                         cuda_device)[0]
+    run_chunk(graphed[0].state, torch.zeros((2, c["height"], c["width"]),
+                                            device=cuda_device),
+              frame_hook=lambda *a: None)
+    assert runner.video_graph_counts["eager"] == 2
+    monkeypatch.setattr(runner, "CHUNK_GRAPHS", 0)
+    runner.reset_counters()
+    plain = [run(clip) for clip in clips]
+    assert runner.video_graph_counts == {"captures": 0, "replays": 0,
+                                         "eager": 6}
+    for a, b in zip(graphed, plain):
+        _same_videos(a, b)
+        assert len(a.outs) == len(b.outs) == 3
+        for x, y in zip(runner._leaves(a.outs), runner._leaves(b.outs)):
+            assert torch.equal(x, y)
 
 
 # (frames shape, pad_hw or None, levels)

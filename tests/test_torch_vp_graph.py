@@ -10,7 +10,7 @@ import dataclasses
 import pytest
 import torch
 
-from gpubench.drivers.vp_fleet import clone
+from gpubench.drivers.vp_fleet import _differing, clone
 from gpubench.tests._tiny_fleet import run_chunks, tiny_fleet_spec
 from lk_tpu_torch.flow.sparse import fold_tracking_levels
 from lk_tpu_torch.ops.rasterize import build_roi_masks
@@ -112,7 +112,7 @@ def test_a_frame_program_steps_a_chunk_in_place(chunk):
     band = tracker_row_band(cell.cfg, c["height"], sub_masks)
     carry = (start, fold_tracking_levels(start.prev_gray, cell.cfg.lk,
                                          row_band=band))
-    prog = runner._FrameProgram()
+    prog = runner._FrameProgram(runner.chunk_graph_counts, 1)
     prog.carry = runner._rebuild(carry, iter(
         [torch.zeros_like(t) for t in runner._leaves(carry)]))
     prog.gray = torch.zeros_like(frames[:, 0])
@@ -148,3 +148,61 @@ def test_off_the_card_a_chunk_runs_op_by_op(chunk):
     run(clone(start), frames)
     assert runner.chunk_graph_counts == {"captures": 0, "replays": 0,
                                          "eager": 1}
+
+
+def test_a_frame_program_steps_a_single_stream_chunk_in_place():
+    """The single-stream runner's frame program (``make_chunk_runner``: a
+    carry of the state alone, frames on axis 0) around the same stand-in
+    graph, on a chunk of the tiny single-stream cell: the chunk's state
+    and outputs are the op-by-op chunk's, in fresh tensors, though the
+    step's new ``prev_gray`` is the static frame itself.  Off the card the
+    runner steps the chunk op by op."""
+    from gpubench.tests._tiny_solo import run_clips, tiny_solo_spec
+
+    torch.set_num_threads(1)
+    cell = run_clips(tiny_solo_spec(), seed=SEED)
+    kept = cell.kept.chunks[1]
+    start, frames = kept["start"], kept["grays"]
+    c = cell.config
+    roi_mask, sub_masks = build_roi_masks(c["width"], c["height"],
+                                          cell.cfg.roi)
+    single, _, _ = make_step(cell.cfg, (c["width"], c["height"]), roi_mask,
+                             sub_masks, device="cpu")
+
+    def step_carry(carry, gray):
+        state, o = single(carry[0], gray)
+        return (state,), o
+
+    prog = runner._FrameProgram(runner.video_graph_counts, 0)
+    prog.carry = (runner._rebuild(start, iter(
+        [torch.zeros_like(t) for t in runner._leaves(start)])),)
+    prog.gray = torch.zeros_like(frames[0])
+
+    class Graph:
+        def replay(self):
+            prog.outs = prog.step_in_place(step_carry)
+
+    prog.graph = Graph()
+    runner.reset_counters()
+    state, outs = prog.run((start,), frames)
+    assert runner.video_graph_counts["replays"] == 1
+    want_state, want_outs = start, []
+    for t in range(frames.shape[0]):
+        want_state, o = single(want_state, frames[t])
+        want_outs.append(o)
+    held = {t.untyped_storage().data_ptr()
+            for t in runner._leaves((prog.carry, prog.gray, prog.outs))}
+    for o, want in zip(outs, want_outs):
+        for a, b in zip(runner._leaves(o), runner._leaves(want)):
+            assert torch.equal(a, b)
+            assert a.untyped_storage().data_ptr() not in held
+    for a, b in zip(runner._leaves(state), runner._leaves(want_state)):
+        assert torch.equal(a, b)
+        assert a.untyped_storage().data_ptr() not in held
+    run = runner.make_chunk_runner(cell.cfg, (c["width"], c["height"]),
+                                   "cpu")[0]
+    end, chunk_outs = run(start, frames)
+    assert runner.video_graph_counts == {"captures": 0, "replays": 1,
+                                         "eager": 1}
+    assert _differing(chunk_outs, kept["outs"]) == 0
+    assert _differing(end, state) == 0
